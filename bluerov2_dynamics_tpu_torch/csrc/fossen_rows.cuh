@@ -1,18 +1,23 @@
-// Shared device code of the port's physics kernels: the closed-form euler12
-// hydrodynamics, its RHS, one Euler or RK4 step, and the thruster actuation
-// (T200 curve, third-order ZOH lag, wrench map).
+// Shared device code of the port's physics kernels: the closed-form
+// hydrodynamics shared by both state conventions, the euler12 and quat13
+// RHSs, one Euler or RK4 step (with the quat13 renormalisation), and the
+// thruster actuation (T200 curve, third-order ZOH lag, wrench map).
 //
 // One copy of the arithmetic of ops/pallas_rollout.py::_make_hydro_rows /
-// _make_rhs_rows / _rk4_rows and of the thruster body of
+// _make_rhs_rows / _rk4_rows, of ops/pallas_quat.py::_normalize_q_rows /
+// _make_rhs_quat_rows / _quat_step_rows and of the thruster body of
 // ops/pallas_eval.py::_make_thruster_window_kernel in the JAX package, and
-// of their plain PyTorch versions in ops/cuda_rollout.py / cuda_eval.py of
-// this package.  The state of one trajectory lives in registers as float
-// x[12]; every loop over it unrolls, so no array ever reaches local memory.
+// of their plain PyTorch versions in ops/cuda_rollout.py, cuda_eval.py and
+// cuda_quat.py of this package.  The state of one trajectory lives in
+// registers as float x[12] or x[13]; every loop over it unrolls, so no
+// array ever reaches local memory.
 //
 // Numerics: f32 throughout, exact sinf/cosf (never __sinf, never
 // --use_fast_math), IEEE division, and the same association order as the
 // plain version.  nvcc contracts a*b+c into one FMA, which is the only
-// source of last-bit differences against the plain version.
+// source of last-bit differences against the plain version, apart from
+// rsqrtf in the quaternion normalise (not correctly rounded; the plain
+// version uses torch.rsqrt).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,25 +47,16 @@ struct ThrusterConsts {
 
 #define BROV2_GIMBAL_EPS 1e-7f
 
-// Closed-form euler12 RHS: dx = f(x, tau).
-__device__ __forceinline__ void rhs_rows(const RowConsts& k, const float* x,
-                                         const float* tau, float* dx) {
-  const float phi = x[3], theta = x[4], psi = x[5];
-  const float u = x[6], v = x[7], w = x[8], pp = x[9], q = x[10], r = x[11];
-
-  const float cphi = cosf(phi), sphi = sinf(phi);
-  const float cth = cosf(theta), sth = sinf(theta);
-  const float cpsi = cosf(psi), spsi = sinf(psi);
-
-  const float r00 = cpsi * cth;
-  const float r01 = -spsi * cphi + cpsi * sth * sphi;
-  const float r02 = spsi * sphi + cpsi * cphi * sth;
-  const float r10 = spsi * cth;
-  const float r11 = cpsi * cphi + sphi * sth * spsi;
-  const float r12 = -cpsi * sphi + sth * spsi * cphi;
-  const float r20 = -sth;
-  const float r21 = cth * sphi;
-  const float r22 = cth * cphi;
+// Hydrodynamics shared by the euler12 and quat13 RHSs: from R = R_{b->n}
+// (9 entries, row-major), the body velocities nu and the wrench tau, the
+// NED position rates (px, py, pz) and nu_dot nd[6].
+__device__ __forceinline__ void hydro_rows(const RowConsts& k, const float* R,
+                                           const float* nu, const float* tau,
+                                           float& px, float& py, float& pz, float* nd) {
+  const float r00 = R[0], r01 = R[1], r02 = R[2];
+  const float r10 = R[3], r11 = R[4], r12 = R[5];
+  const float r20 = R[6], r21 = R[7], r22 = R[8];
+  const float u = nu[0], v = nu[1], w = nu[2], pp = nu[3], q = nu[4], r = nu[5];
 
   // Coriolis C(nu) nu
   const float c0 = k.mdiag[2] * w * q - k.mdiag[1] * v * r;
@@ -81,7 +77,7 @@ __device__ __forceinline__ void rhs_rows(const RowConsts& k, const float* x,
   const float d4 = (k.d_lin[4] + k.d_quad[4] * fabsf(q)) * q;
   const float d5 = (k.d_lin[5] + k.d_quad[5] * fabsf(r)) * r;
 
-  // restoring wrench from the third DCM row (sth = -r20 exactly)
+  // restoring wrench from the third DCM row (sin(theta) = -r20)
   const float s = -r20;
   const float g0 = k.WB * s;
   const float g1 = -k.WB * r21;
@@ -90,16 +86,40 @@ __device__ __forceinline__ void rhs_rows(const RowConsts& k, const float* x,
   const float g4 = -k.zbB * s - k.xbB * r22;
   const float g5 = k.xbB * r21 + k.ybB * s;
 
-  dx[6] = (tau[0] - c0 - d0 - g0) * k.minv[0];
-  dx[7] = (tau[1] - c1 - d1 - g1) * k.minv[1];
-  dx[8] = (tau[2] - c2 - d2 - g2) * k.minv[2];
-  dx[9] = (tau[3] - c3 - d3 - g3) * k.minv[3];
-  dx[10] = (tau[4] - c4 - d4 - g4) * k.minv[4];
-  dx[11] = (tau[5] - c5 - d5 - g5) * k.minv[5];
+  nd[0] = (tau[0] - c0 - d0 - g0) * k.minv[0];
+  nd[1] = (tau[1] - c1 - d1 - g1) * k.minv[1];
+  nd[2] = (tau[2] - c2 - d2 - g2) * k.minv[2];
+  nd[3] = (tau[3] - c3 - d3 - g3) * k.minv[3];
+  nd[4] = (tau[4] - c4 - d4 - g4) * k.minv[4];
+  nd[5] = (tau[5] - c5 - d5 - g5) * k.minv[5];
 
-  dx[0] = r00 * u + r01 * v + r02 * w;
-  dx[1] = r10 * u + r11 * v + r12 * w;
-  dx[2] = r20 * u + r21 * v + r22 * w;
+  px = r00 * u + r01 * v + r02 * w;
+  py = r10 * u + r11 * v + r12 * w;
+  pz = r20 * u + r21 * v + r22 * w;
+}
+
+// Closed-form euler12 RHS: dx = f(x, tau).
+__device__ __forceinline__ void rhs_rows(const RowConsts& k, const float* x,
+                                         const float* tau, float* dx) {
+  const float phi = x[3], theta = x[4];
+  const float pp = x[9], q = x[10], r = x[11];
+
+  const float cphi = cosf(phi), sphi = sinf(phi);
+  const float cth = cosf(theta), sth = sinf(theta);
+  const float cpsi = cosf(x[5]), spsi = sinf(x[5]);
+
+  const float R[9] = {
+      cpsi * cth,
+      -spsi * cphi + cpsi * sth * sphi,
+      spsi * sphi + cpsi * cphi * sth,
+      spsi * cth,
+      cpsi * cphi + sphi * sth * spsi,
+      -cpsi * sphi + sth * spsi * cphi,
+      -sth,  // exact negation: hydro_rows' -r20 gives sth back bit for bit
+      cth * sphi,
+      cth * cphi,
+  };
+  hydro_rows(k, R, x + 6, tau, dx[0], dx[1], dx[2], dx + 6);
 
   // Euler-angle rates with the gimbal clamp (sign(0) = +1)
   const float sign = cth < 0.0f ? -1.0f : 1.0f;
@@ -110,30 +130,95 @@ __device__ __forceinline__ void rhs_rows(const RowConsts& k, const float* x,
   dx[5] = (sphi * q + cphi * r) / cth_c;
 }
 
-// One integrator step in place; METHOD 0 = Euler, 1 = RK4.  tau is held
-// across the RK4 stages.  The RK4 sum is accumulated as
-// ((k1 + 2 k2) + 2 k3) + k4, the association of the plain version.
-template <int METHOD>
-__device__ __forceinline__ void step_rows(const RowConsts& k, float* x, const float* tau) {
-  float kk[12];
-  rhs_rows(k, x, tau, kk);
+#define BROV2_NORM_EPS2 1e-24f  // (1e-12)^2: the identity fallback of quat_normalize
+
+// Quaternion normalise in place by one rsqrt of the squared norm, with the
+// identity fallback below norm 1e-12.  The select comes before the product:
+// rsqrtf(0) is inf, and 0 * inf would be NaN.
+__device__ __forceinline__ void normalize_q_rows(float& qw, float& qx, float& qy, float& qz) {
+  const float n2 = qw * qw + qx * qx + qy * qy + qz * qz;
+  const bool small = n2 < BROV2_NORM_EPS2;
+  const float inv = small ? 0.0f : rsqrtf(n2);
+  const float one_if_small = small ? 1.0f : 0.0f;
+  qw = qw * inv + one_if_small;
+  qx = qx * inv;
+  qy = qy * inv;
+  qz = qz * inv;
+}
+
+// Closed-form quat13 RHS, x = [x, y, z, qw, qx, qy, qz, u, v, w, p, q, r]:
+// the quaternion is normalised on entry (never hoisted out of the RK4
+// stages), the DCM from it feeds kinematics, restoring and current.
+__device__ __forceinline__ void rhs_quat_rows(const RowConsts& k, const float* x,
+                                              const float* tau, float* dx) {
+  float qw = x[3], qx = x[4], qy = x[5], qz = x[6];
+  normalize_q_rows(qw, qx, qy, qz);
+  const float pp = x[10], q = x[11], r = x[12];
+
+  const float R[9] = {
+      1.0f - 2.0f * (qy * qy + qz * qz),
+      2.0f * (qx * qy - qz * qw),
+      2.0f * (qx * qz + qy * qw),
+      2.0f * (qx * qy + qz * qw),
+      1.0f - 2.0f * (qx * qx + qz * qz),
+      2.0f * (qy * qz - qx * qw),
+      2.0f * (qx * qz - qy * qw),
+      2.0f * (qy * qz + qx * qw),
+      1.0f - 2.0f * (qx * qx + qy * qy),
+  };
+  hydro_rows(k, R, x + 7, tau, dx[0], dx[1], dx[2], dx + 7);
+
+  dx[3] = 0.5f * (-qx * pp - qy * q - qz * r);
+  dx[4] = 0.5f * (qw * pp + qy * r - qz * q);
+  dx[5] = 0.5f * (qw * q - qx * r + qz * pp);
+  dx[6] = 0.5f * (qw * r + qx * q - qy * pp);
+}
+
+// One integrator step in place on an N-state (12: euler12, 13: quat13);
+// METHOD 0 = Euler, 1 = RK4.  tau is held across the RK4 stages.  The RK4
+// sum is accumulated as ((k1 + 2 k2) + 2 k3) + k4, the association of the
+// plain version.
+template <int N>
+__device__ __forceinline__ void rhs_n(const RowConsts& k, const float* x,
+                                      const float* tau, float* dx) {
+  if constexpr (N == 12) rhs_rows(k, x, tau, dx);
+  else rhs_quat_rows(k, x, tau, dx);
+}
+
+template <int N, int METHOD>
+__device__ __forceinline__ void integrate_rows(const RowConsts& k, float* x, const float* tau) {
+  float kk[N];
+  rhs_n<N>(k, x, tau, kk);
   if (METHOD == 0) {
 #pragma unroll
-    for (int i = 0; i < 12; ++i) x[i] = x[i] + k.dt * kk[i];
+    for (int i = 0; i < N; ++i) x[i] = x[i] + k.dt * kk[i];
     return;
   }
-  float acc[12], xs[12];
+  float acc[N], xs[N];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) { acc[i] = kk[i]; xs[i] = x[i] + k.half_dt * kk[i]; }
-  rhs_rows(k, xs, tau, kk);
+  for (int i = 0; i < N; ++i) { acc[i] = kk[i]; xs[i] = x[i] + k.half_dt * kk[i]; }
+  rhs_n<N>(k, xs, tau, kk);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) { acc[i] = acc[i] + 2.0f * kk[i]; xs[i] = x[i] + k.half_dt * kk[i]; }
-  rhs_rows(k, xs, tau, kk);
+  for (int i = 0; i < N; ++i) { acc[i] = acc[i] + 2.0f * kk[i]; xs[i] = x[i] + k.half_dt * kk[i]; }
+  rhs_n<N>(k, xs, tau, kk);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) { acc[i] = acc[i] + 2.0f * kk[i]; xs[i] = x[i] + k.dt * kk[i]; }
-  rhs_rows(k, xs, tau, kk);
+  for (int i = 0; i < N; ++i) { acc[i] = acc[i] + 2.0f * kk[i]; xs[i] = x[i] + k.dt * kk[i]; }
+  rhs_n<N>(k, xs, tau, kk);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) x[i] = x[i] + k.sixth_dt * (acc[i] + kk[i]);
+  for (int i = 0; i < N; ++i) x[i] = x[i] + k.sixth_dt * (acc[i] + kk[i]);
+}
+
+// One euler12 step in place.
+template <int METHOD>
+__device__ __forceinline__ void step_rows(const RowConsts& k, float* x, const float* tau) {
+  integrate_rows<12, METHOD>(k, x, tau);
+}
+
+// One quat13 step in place, then (RENORM) the quaternion renormalised.
+template <int METHOD, bool RENORM>
+__device__ __forceinline__ void step_quat_rows(const RowConsts& k, float* x, const float* tau) {
+  integrate_rows<13, METHOD>(k, x, tau);
+  if (RENORM) normalize_q_rows(x[3], x[4], x[5], x[6]);
 }
 
 // T200 odd polynomial in Horner form on V^2.

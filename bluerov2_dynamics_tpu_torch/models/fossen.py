@@ -1,14 +1,19 @@
-"""Fossen 6-DOF BlueROV2 dynamics, euler12 state (PyTorch).
+"""Fossen 6-DOF BlueROV2 dynamics, euler12 and quat13 states (PyTorch).
 
-Counterpart of the euler12 half of ``bluerov2_dynamics_tpu/models/fossen.py``:
-``x = [x, y, z, phi, theta, psi, u, v, w, p, q, r]`` under either 8
-normalised thruster commands (through curve, lag and wrench map) or a
-direct 6-D body wrench.  The mass matrix is diagonal and the Coriolis and
-damping matrices sparse, so ``nu_dot`` is written in closed form.  All
-functions broadcast over leading batch dimensions.
+Counterpart of ``bluerov2_dynamics_tpu/models/fossen.py`` in two state
+conventions:
 
-The quat13 convention (``wrench_rhs_quat``, ``renormalize_quat13``) and the
-reduced 9-state RHS come with later slices of the port.
+* euler12, ``x = [x, y, z, phi, theta, psi, u, v, w, p, q, r]``, under
+  either 8 normalised thruster commands (through curve, lag and wrench
+  map) or a direct 6-D body wrench;
+* quat13, ``x = [x, y, z, qw, qx, qy, qz, u, v, w, p, q, r]``, under a
+  direct 6-D body wrench, with the quaternion normalised on every RHS
+  entry and, optionally, after every step.
+
+The mass matrix is diagonal and the Coriolis and damping matrices sparse,
+so ``nu_dot`` is written in closed form.  All functions broadcast over
+leading batch dimensions.  The reduced 9-state RHS comes with a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -27,6 +32,12 @@ from bluerov2_dynamics_tpu_torch.models.thrusters import (
     thruster_wrench_nolag,
 )
 from bluerov2_dynamics_tpu_torch.ops.integrators import get_stepper, rollout
+from bluerov2_dynamics_tpu_torch.ops.quaternion import (
+    quat_derivative,
+    quat_normalize,
+    quat_rotate,
+    quat_rotate_inv,
+)
 from bluerov2_dynamics_tpu_torch.ops.rotations import (
     euler_rates,
     rotate_b2n,
@@ -116,6 +127,34 @@ def wrench_rhs_euler(p: FossenParams, x, tau):
     return torch.cat([p_dot, eul_dot, nu_dot], dim=-1)
 
 
+def wrench_rhs_quat(p: FossenParams, x, tau):
+    """xdot of the 13-state quaternion model under a body wrench ``tau``.
+
+    The quaternion is normalised on entry, and the restoring wrench comes
+    from the third row of R_{b->n}, never from Euler angles.
+    """
+    q = quat_normalize(x[..., 3:7])
+    nu = x[..., 7:13]
+    current = p.current.expand(x[..., 0:3].shape)
+    nu_r = _relative_velocity(nu, quat_rotate_inv(q, current))
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    # third row of R_{b->n}: [-sth, cth*sphi, cth*cphi]
+    sth = -2.0 * (qx * qz - qy * qw)
+    cth_sphi = 2.0 * (qy * qz + qx * qw)
+    cth_cphi = 1.0 - 2.0 * (qx * qx + qy * qy)
+    gvec = restoring_terms(p, sth, cth_sphi, cth_cphi)
+    nu_dot = _nu_dot(p, nu, nu_r, tau, gvec)
+    p_dot = quat_rotate(q, nu[..., 0:3])
+    q_dot = quat_derivative(q, nu[..., 3:6])
+    return torch.cat([p_dot, q_dot, nu_dot], dim=-1)
+
+
+def renormalize_quat13(x):
+    """Normalise the quaternion block of a quat13 state (post-step hook)."""
+    q = quat_normalize(x[..., 3:7])
+    return torch.cat([x[..., 0:3], q, x[..., 7:13]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Thruster-input model: step with explicit lag state
 # ---------------------------------------------------------------------------
@@ -170,20 +209,24 @@ def make_wrench_step(
     dt: float,
     method: str = "euler",
     state: str = "euler12",
+    renormalize: bool = True,
 ) -> Callable:
-    """Discrete step ``step(x, tau) -> x'`` of the wrench-input model.
+    """Discrete step ``step(x, tau) -> x'`` of a wrench-input model.
 
-    Only ``state="euler12"`` is ported so far.
+    ``state`` is ``"euler12"`` or ``"quat13"``; for quat13 the quaternion
+    is normalised after each step when ``renormalize``.
     """
-    if state == "quat13":
-        raise NotImplementedError(
-            "the quat13 wrench model is not ported yet (ROADMAP Queue 1 item 8)")
-    if state != "euler12":
-        raise ValueError(f"unknown state convention {state!r}")
     stepper = get_stepper(method)
+    if state == "euler12":
+        rhs, post = wrench_rhs_euler, None
+    elif state == "quat13":
+        rhs, post = wrench_rhs_quat, (renormalize_quat13 if renormalize else None)
+    else:
+        raise ValueError(f"unknown state convention {state!r}")
 
     def step(x, tau):
-        return stepper(lambda xx, tt: wrench_rhs_euler(p, xx, tt), x, tau, dt)
+        x = stepper(lambda xx, tt: rhs(p, xx, tt), x, tau, dt)
+        return x if post is None else post(x)
 
     return step
 
@@ -219,9 +262,11 @@ def simulate_wrench(
     dt: float,
     method: str = "euler",
     state: str = "euler12",
+    renormalize: bool = True,
 ):
-    """Open-loop rollout of the wrench-input model; ``TAU``: ``(T, ..., 6)``.
-    Returns ``(T+1, ..., 12)`` with ``x0`` in row 0."""
-    step = make_wrench_step(p, dt, method, state)
+    """Open-loop rollout of a wrench-input model (euler12 or quat13);
+    ``TAU``: ``(T, ..., 6)``.  Returns ``(T+1, ..., n)`` with ``x0`` in
+    row 0."""
+    step = make_wrench_step(p, dt, method, state, renormalize)
     _, traj = rollout(step, x0, TAU, include_initial=True)
     return traj

@@ -38,12 +38,20 @@ _SIGNATURES = {
     },
     "window_eval": {
         "brov2_window_eval": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_batched_rollout": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_window_eval_wrench": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "brov2_error_string": ([_I], ctypes.c_char_p),
+    },
+    "quat": {
+        "brov2_window_eval_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_rollout_final_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
 }
 SOURCES = tuple(_SIGNATURES)
 
-launches = {"shared_tau": 0, "rollout_final": 0, "window_eval": 0}
+launches = {"shared_tau": 0, "rollout_final": 0, "window_eval": 0, "batched_rollout": 0,
+            "window_eval_wrench": 0, "window_eval_quat": 0, "rollout_final_quat": 0}
 _libs: dict = {}
 
 

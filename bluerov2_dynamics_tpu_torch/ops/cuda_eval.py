@@ -1,21 +1,28 @@
-"""K2: the sliding-window endpoint evaluator of the thruster-input euler12
-model, as a CUDA kernel and its plain PyTorch version.
+"""K2, K3 and K4: the euler12 sliding-window evaluators and the
+per-trajectory rollout, as CUDA kernels and their plain PyTorch versions.
 
-Replaces ``ops/pallas_eval.py::_make_thruster_window_kernel`` of the JAX
-package (reached through ``make_endpoint_final_pallas``).  For every start
-``s < N - H``: H steps from ``X[s]`` under the commands ``U[s + t]``, each
-step being the T200 curve, the (3, 8) lag (zero at every start), the
-wrench map and one Euler/RK4 step; the ``(N - H, 12)`` endpoints feed the
-endpoint RMSE.
+* K2 replaces ``ops/pallas_eval.py::_make_thruster_window_kernel`` of the
+  JAX package (reached through ``make_endpoint_final_pallas``).  For every
+  start ``s < N - H``: H steps from ``X[s]`` under the commands
+  ``U[s + t]``, each step being the T200 curve, the (3, 8) lag (zero at
+  every start), the wrench map and one Euler/RK4 step; the ``(N - H, 12)``
+  endpoints feed the endpoint RMSE.
+* K3 replaces ``make_batched_rollout_pallas``: K2's body with one command
+  sequence per trajectory, ``x0 (B, 12)``, ``U (T, B, 8)`` -> ``(B, 12)``,
+  each trajectory from a fresh zero lag state.
+* K4 replaces ``_make_wrench_window_kernel`` (reached through
+  ``make_endpoint_final_pallas_wrench``): the sliding window of the
+  wrench-input euler12 model, ``X (N, 12)``, ``TAU (N, 6)``, with no curve
+  and no lag (the T3 app's physics baseline).
 
-* ``csrc/window_eval.cu``: one thread per start, 12 states and 24 lag
-  states in registers, ``U[s + t]`` read directly (neighbouring starts read
-  neighbouring 32-byte rows, so a warp's loads coalesce; no pre-shifted
-  copy of ``U``).  At the apps' shape (9,065 starts, H=100) it fills less
-  than one wave of the H100's 132 SMs, so the latency of one thread's 100
-  dependent steps, not a pipe, sets its time.
-* The plain version runs all starts at once as ``(n_start,)`` rows with
-  the same step order and association as the kernel.
+``csrc/window_eval.cu`` holds all three: one thread per start, the state
+(and lag) in registers, inputs read directly (neighbouring starts read
+neighbouring rows, so a warp's loads coalesce; no pre-shifted copy of the
+input).  At the apps' shape (9,065 starts, H=100) K2 and K4 fill less than
+one wave of the H100's 132 SMs, so the latency of one thread's 100
+dependent steps, not a pipe, sets their time.  The plain versions run all
+starts at once as ``(n_start,)`` rows with the same step order and
+association as the kernels.
 
 The wrappers dispatch on the tensors' device: CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.
@@ -49,14 +56,15 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
 )
 
 
-def check_window_shapes(X, U, H: int) -> int:
-    """Validate ``X (N, 12)``, ``U (>= N, 8)`` and ``0 <= H < N``; returns
-    the number of starts ``N - H``.  A too-wide ``U`` would be misread and
-    a too-short one would integrate past its end, so both raise."""
-    if X.ndim != 2 or X.shape[1] != 12:
-        raise ValueError(f"X must be (N, 12), got {tuple(X.shape)}")
-    if U.ndim != 2 or U.shape[1] != 8:
-        raise ValueError(f"U must be (N, 8), got {tuple(U.shape)}")
+def check_window_shapes(X, U, H: int, n_state: int = 12, n_in: int = 8) -> int:
+    """Validate ``X (N, n_state)``, ``U (>= N, n_in)`` and ``0 <= H < N``;
+    returns the number of starts ``N - H``.  A too-wide ``U`` would be
+    misread and a too-short one would integrate past its end, so both
+    raise."""
+    if X.ndim != 2 or X.shape[1] != n_state:
+        raise ValueError(f"X must be (N, {n_state}), got {tuple(X.shape)}")
+    if U.ndim != 2 or U.shape[1] != n_in:
+        raise ValueError(f"U must be (N, {n_in}), got {tuple(U.shape)}")
     N = X.shape[0]
     if U.shape[0] < N:
         raise ValueError(f"U has {U.shape[0]} rows < X's {N}; every window "
@@ -64,6 +72,13 @@ def check_window_shapes(X, U, H: int) -> int:
     if H < 0 or N - H <= 0:
         raise ValueError(f"horizon H={H} outside [0, {N}) for a dataset of {N} rows")
     return N - H
+
+
+def check_aligned(t, name: str, nbytes: int) -> None:
+    """The kernels load input rows as ``float4`` or ``float2``."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned (the kernel loads "
+                         f"its rows {nbytes} bytes at a time)")
 
 
 def _wrench_rows(Wm, F):
@@ -78,13 +93,10 @@ def _wrench_rows(Wm, F):
     return tuple(tau)
 
 
-def endpoint_final_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
-                         X, U, dt: float, H: int, method: str = "rk4",
-                         use_lag: bool = True):
-    """Plain PyTorch version of K2: ``(N - H, 12)`` endpoint states of all
-    sliding-window rollouts, each from a fresh zero lag state."""
-    check_method(method)
-    n_start = check_window_shapes(X, U, H)
+def _thruster_rows_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
+                        x0, inputs, T: int, dt: float, method: str, use_lag: bool):
+    """The body of K2 and K3: the rows ``x0 (B, 12)`` advance T steps
+    under the commands ``inputs(t) (B, 8)``, from a fresh zero lag."""
     rhs = make_rhs_rows(p)
     c1, c3, c5, c7, c9 = host_floats(cfg.curve)
     W = host_floats(cfg.wrench_map)
@@ -94,11 +106,10 @@ def endpoint_final_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
     Bd = host_floats(lag.Bd)
     cl = host_floats(lag.c)
 
-    xs = tuple(X[:n_start].to(torch.float32).unbind(-1))
-    Uf = U.to(torch.float32)
-    L0 = L1 = L2 = torch.zeros((n_start, 8), dtype=torch.float32, device=X.device)
-    for t in range(H):
-        u = Uf[t:t + n_start]                      # (n_start, 8)
+    xs = tuple(x0.to(torch.float32).unbind(-1))
+    L0 = L1 = L2 = torch.zeros((x0.shape[0], 8), dtype=torch.float32, device=x0.device)
+    for t in range(T):
+        u = inputs(t)                              # (B, 8)
         u2 = u * u
         F_cmd = u * (c1 + u2 * (c3 + u2 * (c5 + u2 * (c7 + u2 * c9))))
         if use_lag:
@@ -114,6 +125,51 @@ def endpoint_final_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
     return torch.stack(xs, dim=-1)
 
 
+def endpoint_final_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
+                         X, U, dt: float, H: int, method: str = "rk4",
+                         use_lag: bool = True):
+    """Plain PyTorch version of K2: ``(N - H, 12)`` endpoint states of all
+    sliding-window rollouts, each from a fresh zero lag state."""
+    check_method(method)
+    n_start = check_window_shapes(X, U, H)
+    Uf = U.to(torch.float32)
+    return _thruster_rows_plain(p, cfg, lag, X[:n_start], lambda t: Uf[t:t + n_start],
+                                H, dt, method, use_lag)
+
+
+def check_batched_shapes(x0, U) -> None:
+    """Validate ``x0 (B, 12)`` and ``U (T, B, 8)``."""
+    if x0.ndim != 2 or x0.shape[1] != 12:
+        raise ValueError(f"x0 must be (B, 12), got {tuple(x0.shape)}")
+    if U.ndim != 3 or U.shape[1:] != (x0.shape[0], 8):
+        raise ValueError(f"U must be (T, B, 8) with B={x0.shape[0]}, got {tuple(U.shape)}")
+
+
+def batched_rollout_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
+                          x0, U, dt: float, method: str = "rk4", use_lag: bool = True):
+    """Plain PyTorch version of K3: ``x0 (B, 12)`` under its own commands
+    ``U (T, B, 8)``, each from a fresh zero lag state -> ``(B, 12)``."""
+    check_method(method)
+    check_batched_shapes(x0, U)
+    Uf = U.to(torch.float32)
+    return _thruster_rows_plain(p, cfg, lag, x0, lambda t: Uf[t], U.shape[0], dt,
+                                method, use_lag)
+
+
+def endpoint_final_wrench_plain(p: FossenParams, X, TAU, dt: float, H: int,
+                                method: str = "rk4"):
+    """Plain PyTorch version of K4: ``(N - H, 12)`` endpoint states of the
+    wrench-input euler12 model under ``TAU (N, 6)``."""
+    check_method(method)
+    n_start = check_window_shapes(X, TAU, H, n_in=6)
+    rhs = make_rhs_rows(p)
+    xs = tuple(X[:n_start].to(torch.float32).unbind(-1))
+    Tf = TAU.to(torch.float32)
+    for t in range(H):
+        xs = rk4_rows(rhs, xs, tuple(Tf[t:t + n_start].unbind(-1)), dt, method)
+    return torch.stack(xs, dim=-1)
+
+
 def launch_window_eval(rc: RowConsts, tc: ThrusterConsts, X, U, H: int,
                        method: str, use_lag: bool):
     """Launch K2; returns the ``(N - H, 12)`` endpoints."""
@@ -123,8 +179,7 @@ def launch_window_eval(rc: RowConsts, tc: ThrusterConsts, X, U, H: int,
     check_kernel_input(U, "U", 8)
     if not same_device(X, U):
         raise ValueError("X and U must be on one device")
-    if U.data_ptr() % 16:
-        raise ValueError("U must be 16-byte aligned (the kernel loads rows as float4)")
+    check_aligned(U, "U", 16)
     lib = _build.load_library("window_eval")
     out = torch.empty((n_start, 12), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
@@ -167,3 +222,91 @@ def endpoint_rmse_cuda(p, cfg, lag, X, U, dt: float, H: int, **kw):
     """Endpoint H-step RMSE through :func:`make_endpoint_final_cuda`."""
     final = make_endpoint_final_cuda(p, cfg, lag, dt, H, **kw)(X, U)
     return rmse(X[H:].to(torch.float32), final)
+
+
+def launch_batched_rollout(rc: RowConsts, tc: ThrusterConsts, x0, U, method: str,
+                           use_lag: bool):
+    """Launch K3 on ``x0 (B, 12)`` under ``U (T, B, 8)``."""
+    check_method(method)
+    check_batched_shapes(x0, U)
+    check_kernel_input(x0, "x0", 12)
+    if not U.is_contiguous():
+        raise ValueError("U must be contiguous")
+    check_kernel_input(U.view(-1, 8), "U", 8)
+    if not same_device(x0, U):
+        raise ValueError("x0 and U must be on one device")
+    check_aligned(U, "U", 16)
+    out = torch.empty_like(x0)
+    B, T = x0.shape[0], U.shape[0]
+    if B == 0:
+        return out
+    lib = _build.load_library("window_eval")
+    with torch.cuda.device(x0.device):
+        code = lib.brov2_batched_rollout(
+            ctypes.addressof(rc), ctypes.addressof(tc), x0.data_ptr(), U.data_ptr(),
+            out.data_ptr(), B, T, METHODS[method], int(use_lag),
+            torch.cuda.current_stream(x0.device).cuda_stream)
+    _build.check(lib, code, "batched_rollout")
+    _build.launches["batched_rollout"] += 1
+    return out
+
+
+def make_batched_rollout_cuda(
+    p: FossenParams,
+    cfg: ThrusterConfig,
+    lag: LagParams,
+    dt: float,
+    method: str = "rk4",
+    use_lag: bool = True,
+):
+    """Build ``fn(x0, U) -> xT`` for per-trajectory commands: ``x0 (B, 12)``,
+    ``U (T, B, 8)``; each trajectory starts from a fresh zero lag state.
+    Any B works (the ragged edge is masked in the kernel)."""
+    check_method(method)
+    rc, tc = row_consts(p, dt), thruster_consts(cfg, lag)
+
+    def fn(x0, U):
+        if not same_device(x0, U):
+            raise ValueError(f"x0 and U on different devices ({x0.device}, {U.device})")
+        if x0.device.type == "cpu":
+            return batched_rollout_plain(p, cfg, lag, x0, U, dt, method, use_lag)
+        return launch_batched_rollout(rc, tc, x0, U, method, use_lag)
+
+    return fn
+
+
+def launch_window_eval_wrench(rc: RowConsts, X, TAU, H: int, method: str):
+    """Launch K4; returns the ``(N - H, 12)`` endpoints."""
+    check_method(method)
+    n_start = check_window_shapes(X, TAU, H, n_in=6)
+    check_kernel_input(X, "X", 12)
+    check_kernel_input(TAU, "TAU", 6)
+    if not same_device(X, TAU):
+        raise ValueError("X and TAU must be on one device")
+    check_aligned(TAU, "TAU", 8)
+    lib = _build.load_library("window_eval")
+    out = torch.empty((n_start, 12), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        code = lib.brov2_window_eval_wrench(
+            ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), out.data_ptr(),
+            n_start, H, METHODS[method], torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(lib, code, "window_eval_wrench")
+    _build.launches["window_eval_wrench"] += 1
+    return out
+
+
+def make_endpoint_final_cuda_wrench(p: FossenParams, dt: float, H: int,
+                                   method: str = "rk4"):
+    """Build ``fn(X, TAU) -> (N - H, 12)`` endpoint states of the
+    wrench-input euler12 model; feed into ``rmse(X[H:], final)``."""
+    check_method(method)
+    rc = row_consts(p, dt)
+
+    def fn(X, TAU):
+        if not same_device(X, TAU):
+            raise ValueError(f"X and TAU on different devices ({X.device}, {TAU.device})")
+        if X.device.type == "cpu":
+            return endpoint_final_wrench_plain(p, X, TAU, dt, H, method)
+        return launch_window_eval_wrench(rc, X, TAU, H, method)
+
+    return fn

@@ -1,9 +1,13 @@
-"""K2, the sliding-window endpoint evaluator: its plain version against the
-JAX package's Pallas kernel in interpret mode (CPU), and the CUDA kernel
-against the plain version where a card exists.
+"""K2 (thruster sliding window), K3 (per-trajectory rollout) and K4
+(wrench sliding window): their plain versions against the JAX package's
+Pallas kernels in interpret mode (CPU), and the CUDA kernels against the
+plain versions where a card exists.
 
-Tolerance rtol 2e-4 / atol 2e-5 in float32: the JAX package's own for
-this kernel (tests/test_pallas_eval.py).
+Tolerances in float32: rtol 2e-4 / atol 2e-5 (``TOL``), the JAX package's
+own for these kernels (tests/test_pallas_eval.py); atol 2e-5 alone
+(``TOL_ROWS``) for the new K3/K4 cases against the Pallas kernel and for
+K4 on the card, where both sides do the same operations in the same order
+on states of order one.
 """
 
 import numpy as np
@@ -11,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from bluerov2_dynamics_tpu.eval import metrics as jmetrics
 from bluerov2_dynamics_tpu.models import fossen as jfossen
 from bluerov2_dynamics_tpu.models import params as jparams
 from bluerov2_dynamics_tpu.ops import pallas_eval as jpe
@@ -20,6 +25,8 @@ from bluerov2_dynamics_tpu_torch.ops import _build
 from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
 
 TOL = dict(rtol=2e-4, atol=2e-5)
+TOL_ROWS = dict(rtol=0.0, atol=2e-5)
+CURRENTS = [(0.0, 0.0, 0.0), (0.2, -0.15, 0.05)]
 
 
 @pytest.fixture
@@ -108,3 +115,140 @@ def test_kernel_matches_plain_on_card(method, cuda, rng):
     assert _build.launches["window_eval"] == before + 1
     want = ce.endpoint_final_plain(p, cfg, lag, X, U, dt, 10, method)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+# --- K3: per-trajectory rollout --------------------------------------------------
+
+def _batched_inputs(rng, B=12, T=25):
+    x0 = (rng.normal(size=(B, 12)) * 0.3).astype(np.float32)
+    U = np.clip(rng.normal(size=(T, B, 8)) * 0.5, -1, 1).astype(np.float32)
+    return x0, U
+
+
+@pytest.mark.parametrize("method,use_lag", [("rk4", True), ("euler", True), ("rk4", False)])
+def test_plain_batched_rollout_matches_pallas_interpret(method, use_lag, rng):
+    (jp, jcfg, jlag), (tp, tcfg, tlag), _, _, dt = _data(rng, N=20)
+    x0, U = _batched_inputs(rng)
+    want = jpe.make_batched_rollout_pallas(jp, jcfg, jlag, dt, method=method, block_b=8,
+                                           interpret=True, use_lag=use_lag)(
+        jnp.asarray(x0), jnp.asarray(U))
+    got = ce.batched_rollout_plain(tp, tcfg, tlag, torch.from_numpy(x0), torch.from_numpy(U),
+                                   dt, method, use_lag)
+    assert got.shape == (12, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_ROWS)
+
+
+def test_batched_rollout_gives_each_trajectory_its_own_commands(rng):
+    """Trajectory b equals a rollout of its own from at-rest filters, and
+    the CPU path counts no launch."""
+    _, (tp, tcfg, tlag), _, _, dt = _data(rng, N=20)
+    x0, U = (torch.from_numpy(a) for a in _batched_inputs(rng, B=5, T=8))
+    before = dict(_build.launches)
+    got = ce.make_batched_rollout_cuda(tp, tcfg, tlag, dt, "rk4")(x0, U)
+    assert _build.launches == before
+    for b in range(5):
+        traj = tfossen.simulate_thruster(tp, tcfg, tlag, x0[b], U[:, b], dt, "rk4")
+        np.testing.assert_allclose(got[b].numpy(), traj[-1].numpy(), **TOL)
+
+
+# --- K4: wrench-input sliding window ---------------------------------------------
+
+def _wrench_data(rng, current, N=70, dt=0.02):
+    """A wrench-input recording simulated by the JAX package, with sensor
+    noise."""
+    jp = jparams.fossen_params(current=current, dtype=jnp.float32)
+    TAU = (rng.normal(size=(N, 6)) * 3.0).astype(np.float32)
+    x0 = jnp.asarray(rng.normal(size=12) * 0.2, jnp.float32)
+    X = np.asarray(jfossen.simulate_wrench(jp, x0, jnp.asarray(TAU), dt)[:-1])
+    X = (X + rng.normal(size=X.shape) * 1e-3).astype(np.float32)
+    return jp, tparams.fossen_params(current=current, device="cpu"), X, TAU, dt
+
+
+@pytest.mark.parametrize("current", CURRENTS)
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+def test_plain_wrench_window_matches_pallas_interpret(method, current, rng):
+    jp, tp, X, TAU, dt = _wrench_data(rng, current)
+    H = 10
+    want = jpe.make_endpoint_final_pallas_wrench(jp, dt, H, method=method, block_b=16,
+                                                 interpret=True)(jnp.asarray(X), jnp.asarray(TAU))
+    got = ce.endpoint_final_wrench_plain(tp, torch.from_numpy(X), torch.from_numpy(TAU),
+                                         dt, H, method)
+    assert got.shape == (X.shape[0] - H, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_ROWS)
+
+
+def test_wrench_window_rmse_matches_the_jax_step_loop(rng):
+    jp, tp, X, TAU, dt = _wrench_data(rng, CURRENTS[1])
+    H = 7
+    before = dict(_build.launches)
+    final = ce.make_endpoint_final_cuda_wrench(tp, dt, H, "euler")(
+        torch.from_numpy(X), torch.from_numpy(TAU))
+    assert _build.launches == before  # CPU tensors: plain version, no kernel
+    got = float(torch.sqrt(torch.mean((torch.from_numpy(X[H:]) - final) ** 2)))
+    step = jfossen.make_wrench_step(jp, dt, method="euler", state="euler12")
+    want = float(jmetrics.endpoint_rmse(step, jnp.asarray(X), jnp.asarray(TAU), H))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad,match", [("thruster_cmds", "U must be"), ("short", "rows"),
+                                       ("x_width", "X must be"), ("horizon", "horizon")])
+def test_wrench_window_rejects_mis_shaped_inputs(bad, match):
+    """The texts of the JAX window evaluator's assertions (pallas_eval.py:149-155)."""
+    tp = tparams.fossen_params(device="cpu")
+    X, TAU, H = torch.zeros(40, 12), torch.zeros(40, 6), 10
+    X, TAU, H = {
+        "thruster_cmds": (X, torch.zeros(40, 8), H),
+        "short": (X, torch.zeros(20, 6), H),
+        "x_width": (torch.zeros(40, 13), TAU, H),
+        "horizon": (X, TAU, 40),
+    }[bad]
+    with pytest.raises(ValueError, match=match):
+        ce.make_endpoint_final_cuda_wrench(tp, 0.02, H, "euler")(X, TAU)
+
+
+def test_new_factories_reject_unknown_methods_and_shapes():
+    tp, tcfg, tlag = (tparams.fossen_params(device="cpu"), tparams.thruster_config(device="cpu"),
+                      tparams.lag_params(0.02, device="cpu"))
+    for bad in ("rk2", "Euler"):
+        with pytest.raises(ValueError, match="unknown method"):
+            ce.make_endpoint_final_cuda_wrench(tp, 0.02, 10, bad)
+        with pytest.raises(ValueError, match="unknown method"):
+            ce.make_batched_rollout_cuda(tp, tcfg, tlag, 0.02, bad)
+    fn = ce.make_batched_rollout_cuda(tp, tcfg, tlag, 0.02, "euler")
+    with pytest.raises(ValueError, match="U must be"):
+        fn(torch.zeros(4, 12), torch.zeros(3, 5, 8))       # B mismatch
+    with pytest.raises(ValueError, match="x0 must be"):
+        fn(torch.zeros(4, 13), torch.zeros(3, 4, 8))
+    rc, tc = ce.row_consts(tp, 0.02), ce.thruster_consts(tcfg, tlag)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ce.launch_batched_rollout(rc, tc, torch.zeros(4, 12), torch.zeros(3, 4, 8), "rk4", True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ce.launch_window_eval_wrench(rc, torch.zeros(20, 12), torch.zeros(20, 6), 5, "euler")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+def test_batched_rollout_kernel_matches_plain_on_card(method, cuda, rng):
+    _, port, _, _, dt = _data(rng, N=20)
+    p, cfg, lag = (c.to(cuda) for c in port)
+    x0, U = (torch.from_numpy(a).to(cuda) for a in _batched_inputs(rng, B=1000, T=50))
+    before = _build.launches["batched_rollout"]
+    got = ce.make_batched_rollout_cuda(p, cfg, lag, dt, method)(x0, U)
+    torch.cuda.synchronize()
+    assert _build.launches["batched_rollout"] == before + 1
+    want = ce.batched_rollout_plain(p, cfg, lag, x0, U, dt, method)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+def test_wrench_window_kernel_matches_plain_on_card(method, cuda, rng):
+    _, tp, X, TAU, dt = _wrench_data(rng, CURRENTS[1], N=300)
+    p = tp.to(cuda)
+    X, TAU = torch.from_numpy(X).to(cuda), torch.from_numpy(TAU).to(cuda)
+    before = _build.launches["window_eval_wrench"]
+    got = ce.make_endpoint_final_cuda_wrench(p, dt, 20, method)(X, TAU)
+    torch.cuda.synchronize()
+    assert _build.launches["window_eval_wrench"] == before + 1
+    want = ce.endpoint_final_wrench_plain(p, X, TAU, dt, 20, method)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL_ROWS)

@@ -17,6 +17,7 @@ from bluerov2_dynamics_tpu.models import fossen as jfossen
 from bluerov2_dynamics_tpu.models import params as jparams
 from bluerov2_dynamics_tpu.models import thrusters as jthr
 from bluerov2_dynamics_tpu.ops import integrators as jint
+from bluerov2_dynamics_tpu.ops import quaternion as jq
 from bluerov2_dynamics_tpu.ops import rotations as jrot
 from bluerov2_dynamics_tpu_torch.models import fossen as tfossen
 from bluerov2_dynamics_tpu_torch.models import params as tparams
@@ -241,9 +242,65 @@ def test_simulate_wrench_matches_jax(rng):
 
 def test_step_factories_reject_what_is_not_ported():
     (_, _, _), (tp, tcfg, tlag) = _models()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tfossen.make_wrench_step(tp, 0.02, state="quat13")
     with pytest.raises(ValueError):
         tfossen.make_wrench_step(tp, 0.02, state="euler9")
     with pytest.raises(ValueError):
         tfossen.make_thruster_step(tp, tcfg, tlag, 0.02, method="Euler")
+
+
+# --- quat13 --------------------------------------------------------------------
+
+CURRENTS = [(0.0, 0.0, 0.0), (0.3, -0.2, 0.1)]
+
+
+def _quat_states(rng, n, dtype):
+    """quat13 states with unit quaternions from random Euler angles."""
+    x = rng.normal(size=(n, 13)) * 0.3
+    eul = rng.normal(size=(3, n)) * 0.4
+    x[:, 3:7] = np.asarray(jq.euler_to_quat(*(jnp.asarray(a) for a in eul)))
+    return _pair(x, dtype)
+
+
+@pytest.mark.parametrize("current", CURRENTS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_wrench_rhs_quat_matches_jax(dtype, current, rng):
+    (jp, _, _), (tp, _, _) = _models(current=current, dtype=dtype)
+    jx, tx = _quat_states(rng, 6, dtype)
+    # an unnormalised quaternion too: the RHS normalises on entry
+    jx, tx = jx.at[0, 3:7].multiply(1.7), tx.clone()
+    tx[0, 3:7] *= 1.7
+    jt, tt = _pair(rng.normal(size=(6, 6)) * 5.0, dtype)
+    tol = F64 if dtype == "float64" else dict(rtol=1e-5, atol=2e-5)
+    _close(tfossen.wrench_rhs_quat(tp, tx, tt), jfossen.wrench_rhs_quat(jp, jx, jt), tol)
+
+
+def test_renormalize_quat13_matches_jax(rng):
+    jx, tx = _quat_states(rng, 5, "float64")
+    jx, tx = jx * 1.3, tx * 1.3
+    got = tfossen.renormalize_quat13(tx)
+    _close(got, jfossen.renormalize_quat13(jx), F64)
+    np.testing.assert_allclose(np.linalg.norm(got[:, 3:7].numpy(), axis=1), 1.0, atol=1e-12)
+
+
+@pytest.mark.parametrize("current", CURRENTS)
+@pytest.mark.parametrize("renormalize", [True, False])
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+def test_make_wrench_step_quat13_matches_jax(method, renormalize, current, rng):
+    (jp, _, _), (tp, _, _) = _models(current=current)
+    jx, tx = _quat_states(rng, 8, "float32")
+    jt, tt = _pair(rng.normal(size=(8, 6)) * 3.0, "float32")
+    jstep = jfossen.make_wrench_step(jp, 0.02, method, "quat13", renormalize)
+    tstep = tfossen.make_wrench_step(tp, 0.02, method, "quat13", renormalize)
+    _close(tstep(tx, tt), jstep(jx, jt), F32)
+
+
+@pytest.mark.parametrize("current", CURRENTS)
+def test_simulate_wrench_quat13_matches_jax(current, rng):
+    (jp, _, _), (tp, _, _) = _models(current=current)
+    jx, tx = _quat_states(rng, 3, "float32")
+    jT, tT = _pair(rng.normal(size=(20, 3, 6)) * 3.0, "float32")
+    want = jfossen.simulate_wrench(jp, jx, jT, 0.05, "rk4", state="quat13")
+    got = tfossen.simulate_wrench(tp, tx, tT, 0.05, "rk4", state="quat13")
+    assert got.shape == (21, 3, 13)
+    _close(got, want, F32)
+    np.testing.assert_allclose(np.linalg.norm(got[-1, :, 3:7].numpy(), axis=1), 1.0, atol=1e-6)
