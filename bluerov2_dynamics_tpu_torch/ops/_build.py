@@ -47,11 +47,19 @@ _SIGNATURES = {
         "brov2_rollout_final_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
+    "probes": {
+        "brov2_probe_fma": ([_P, _P, _I, _I, _I, _P], _I),
+        "brov2_probe_sin": ([_P, _P, _I, _I, _I, _P], _I),
+        "brov2_probe_fma_tree": ([_P, _P, _I, _I, _I, _P], _I),
+        "brov2_probe_quat_mix": ([_P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 
 launches = {"shared_tau": 0, "rollout_final": 0, "window_eval": 0, "batched_rollout": 0,
-            "window_eval_wrench": 0, "window_eval_quat": 0, "rollout_final_quat": 0}
+            "window_eval_wrench": 0, "window_eval_quat": 0, "rollout_final_quat": 0,
+            "fma_peak": 0, "transcendental_peak": 0, "fma_tree_peak": 0, "quat_mix_peak": 0}
 _libs: dict = {}
 
 

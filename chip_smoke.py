@@ -30,13 +30,27 @@ Phases (any failure raises and ends the run with a non-zero code):
    host CPU;
 5. timing with CUDA events: each kernel and its plain version, the window
    kernels at 9,065 and 44,800 starts, and the calls end to end;
-6. one JSON line ``{"kernels": [...]}``, then the last line
+6. K7: the three sharded window evaluators (``parallel.sharded``) at
+   44,800 starts x H=100 (Euler) on a one-rank NCCL group, held against
+   the unsharded kernels and the plain versions; then four contiguous
+   blocks through the same per-rank body, whose squared errors must sum to
+   the world-1 result (world > 1 needs one card per rank: NCCL refuses two
+   ranks on one card, so the 4-rank runs are the CPU tests' work);
+7. K8: the four ceiling probes at 65,536 lanes, each at the block size
+   that measures fastest, with the card's clocks and power beside each
+   rate; each kernel against its plain version at 16 iterations; the
+   probes' loop bodies as ``cuobjdump -sass`` shows them (the fma probe
+   is held by its increment, the mix probe at both quat13 budgets);
+8. the measured ceilings of K1-K7 from the probes' rates, and the
+   measured price of one sinf and one rsqrtf in FMA-tree flops;
+9. one JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,23 +66,15 @@ H_APP = (1, 10, 100)
 N_LARGE = 44_800                    # full-recording start count
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+# The bounds price the audited step counts (eval/op_counts.py) at these
+# peaks, with a division or rsqrt at 8 and a sinf/cosf at 16 operations;
+# the ceilings price them at the rates the K8 probes measure.
 FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# Operation counts per trajectory and step, from the JAX kernels' jaxprs:
-# the euler12 row step as (flops, divisions, sin/cos) (bench.py
-# _vector_op_buckets on _pallas_kernel_step), the quat13 step with its
-# per-stage and post-step normalise as (flops, rsqrt) (bench.py
-# quat_step_op_counts).  An IEEE division and an rsqrt are priced at 8
-# FP32 operations (reciprocal estimate and Newton refinement) and an exact
-# sinf/cosf at 16 (range reduction, minimax polynomial, quadrant
-# selection); these are estimates, not counted instructions.  The audited
-# cheap ops (abs, compare, select: 15/60 per euler12 Euler/RK4 step, 14/47
-# per quat13 step) are left out of both.
-ROW_STEP = {"rk4": (684, 8, 24), "euler": (156, 2, 6)}
-QUAT_STEP = {"rk4": (877, 5), "euler": (212, 2)}
-DIV_OPS, TRIG_OPS = 8, 16
-CURVE_OPS = 10      # per thruster: V*V, four multiply-adds, final multiply
-LAG_OPS = 26        # per thruster: three rows of 4 mul + 3 add, then c.N
+K7_BACKEND = "nccl"
+K7_BLOCKS = 4                       # offset blocks of the world-1 check
+PROBE_BLOCKS = (128, 256, 512)      # threads per block tried for each probe
+CHECK_ITERS = 16                    # probe iterations of the check against the plain versions
 
 # |kernel - plain| <= atol + rtol * |plain|, elementwise, as (rtol, atol).
 # The kernels and their plain versions do the same float32 operations in
@@ -89,6 +95,17 @@ TOL = {
     "rollout_final_quat": (0.0, 2e-5),   # RK4, 500 steps
     "rmse": (1e-4, 0.0),
     "quat_norm": (0.0, 1e-5),
+    # K7 against the unsharded kernel: the same per-rank kernel, one float32
+    # sum reordered (against the plain versions K7 keeps "rmse")
+    "sharded_rmse": (1e-5, 0.0),
+    # K8 at CHECK_ITERS: one rounding of a fused multiply-add where the
+    # plain version has two, over 16 dependent steps.  The fma probe is held
+    # by its increment (cuda_probes.fma_peak_increment): its output moves
+    # only ~1e-7 per iteration, its increment by 1/CHECK_ITERS of itself
+    "fma_peak": (1e-5, 0.0),
+    "transcendental_peak": (1e-5, 0.0),
+    "fma_tree_peak": (1e-5, 0.0),
+    "quat_mix_peak": (1e-5, 0.0),
 }
 # K3's white-noise commands tip a few trajectories over: where pitch passes
 # +-pi/2 the euler12 rates divide by the clamped cos(theta) and the path is
@@ -120,14 +137,11 @@ def max_err(got, want, name):
     return err
 
 
-def row_ops(method: str) -> int:
-    flops, div, trig = ROW_STEP[method]
-    return flops + DIV_OPS * div + TRIG_OPS * trig
-
-
-def quat_ops(method: str) -> int:
-    flops, rsqrt = QUAT_STEP[method]
-    return flops + DIV_OPS * rsqrt
+def close(got: float, want: float, rtol: float, what: str) -> None:
+    print(f"{what}: {got:.9g} vs {want:.9g} (rel {abs(got - want) / abs(want):.3e}, "
+          f"rtol {rtol:g})")
+    if not abs(got - want) <= rtol * abs(want):
+        fail(f"{what}: {got} vs {want}, outside rtol {rtol}")
 
 
 def bound(ops: float, nbytes: float):
@@ -169,15 +183,22 @@ def main() -> None:
         fossen_wrench_evaluator, wrench_dataset)
     from bluerov2_dynamics_tpu_torch.apps.tank_wrench_quat import (
         fossen_quat_evaluator, quat_dataset)
+    import torch.distributed as dist
+
     from bluerov2_dynamics_tpu_torch.eval import metrics
+    from bluerov2_dynamics_tpu_torch.eval.op_counts import (
+        DIV_OPS, QUAT_BUDGET, ROW_BUDGET, TRIG_OPS, actuation_ops, quat_ops, row_ops)
     from bluerov2_dynamics_tpu_torch.eval.timing import cuda_event_time, time_fn
     from bluerov2_dynamics_tpu_torch.models import fossen
     from bluerov2_dynamics_tpu_torch.models.params import (
         fossen_params, lag_params, thruster_config)
     from bluerov2_dynamics_tpu_torch.ops import _build
     from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
+    from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
     from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
     from bluerov2_dynamics_tpu_torch.ops import cuda_rollout as cr
+    from bluerov2_dynamics_tpu_torch.parallel import mesh as pmesh
+    from bluerov2_dynamics_tpu_torch.parallel import sharded
 
     # 1. device ---------------------------------------------------------------
     smi = subprocess.run(
@@ -198,6 +219,10 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    spills = [line.strip() for line in logs["probes"].splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    if spills:
+        fail(f"a probe spills, so it measures local memory and not the card's FP32 rate: {spills}")
 
     # 3. inputs and the main paths ----------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -233,9 +258,10 @@ def main() -> None:
 
     launches = {}
 
-    def drive(phase, names, fn):
+    def drive(phase, names, fn, into=launches):
         """Run ``fn`` with the launch counts set to 0 just before and read
-        just after; every kernel of ``names`` must have launched."""
+        just after into ``into``; every kernel of ``names`` must have
+        launched."""
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         out = fn()
@@ -245,7 +271,7 @@ def main() -> None:
         for n, c in counts.items():
             if c < 1:
                 fail(f"kernel {n} was not launched on the {phase} path")
-        launches.update(counts)
+        into.update(counts)
         return out
 
     roll = cr.make_rollout_final_cuda(p, cfg, lag, DT, "rk4")
@@ -376,7 +402,7 @@ def main() -> None:
     print(f"K1 tau_seq kernel {ms['shared_tau']:.4f} ms (plain {plain_ms['shared_tau']:.2f} ms)")
 
     nnz = int((cfg.wrench_map != 0).sum())
-    act_ops = 8 * (CURVE_OPS + LAG_OPS) + 2 * nnz - 6
+    act_ops = actuation_ops(nnz)
     steps = B_ROLL * T_ROLL
     bounds["rollout_final"] = bound(steps * row_ops("rk4"), 4 * (2 * B_ROLL * 12 + T_ROLL * 6))
     bounds["shared_tau"] = bound(T_ROLL * act_ops, 4 * T_ROLL * (8 + 6))
@@ -431,10 +457,223 @@ def main() -> None:
                       ("fossen_quat_evaluator", evaluate4)):
         _, t_eval = time_fn(fn, H, warmup=1, iters=5)
         print(f"{label}(H={H}) end to end: {1e3 * t_eval:.4f} ms ({N_REC - H} starts)")
+
+    # 6. K7: the sharded window evaluators, world 1 -------------------------------
+    m_blk = N_LARGE // K7_BLOCKS
+    k7 = {  # name: (per-rank kernel, sharded wrapper, single-device evaluator, X, input)
+        "sharded_window_eval": (
+            "window_eval",
+            lambda mesh, X, Ui: sharded.shardmap_endpoint_rmse_cuda(
+                mesh, p, cfg, lag, X, Ui, DT, H, method="euler"),
+            ce.make_endpoint_final_cuda(p, cfg, lag, DT, H, "euler"), X12_l, U8_l),
+        "sharded_window_eval_wrench": (
+            "window_eval_wrench",
+            lambda mesh, X, Ti: sharded.shardmap_endpoint_rmse_cuda_wrench(
+                mesh, p, X, Ti, DT, H, method="euler"),
+            ce.make_endpoint_final_cuda_wrench(p, DT, H, "euler"), X12_l, TAU_l),
+        "sharded_window_eval_quat": (
+            "window_eval_quat",
+            lambda mesh, X, Ti: sharded.shardmap_endpoint_rmse_cuda_quat(
+                mesh, p, X, Ti, DT, H, method="euler"),
+            cq.make_endpoint_final_cuda_quat(p, DT, H, "euler"), X13_l, TAU_l),
+    }
+    k7_launches, wrapper_ms, k7_unsharded_err = {}, {}, {}
+    pmesh.init_group(K7_BACKEND, device=dev)
+    try:
+        mesh1 = pmesh.make_mesh(axis_names=("data",), device_type="cuda")
+        print(f"K7: {K7_BACKEND} group of {dist.get_world_size()} rank, mesh {mesh1}")
+
+        def k7_path():
+            out = {}
+            for name, (_, wrapper, final_fn, X, Ui) in k7.items():
+                world1 = wrapper(mesh1, X, Ui)
+                sq = sum(sharded.window_block_sq(final_fn, X, Ui, H, r * m_blk, m_blk)
+                         for r in range(K7_BLOCKS))
+                out[name] = (float(world1), float(torch.sqrt(sq / (N_LARGE * X.shape[1]))))
+            return out
+
+        k7_res = drive("K7 sharded windows (world 1, then 4 offset blocks)",
+                       [v[0] for v in k7.values()], k7_path, into=k7_launches)
+        for kname, c in k7_launches.items():
+            if c != 1 + K7_BLOCKS:
+                fail(f"K7: kernel {kname} launched {c} times, not 1 + {K7_BLOCKS}")
+        for name, (kname, wrapper, final_fn, X, Ui) in k7.items():
+            world1, blocks = k7_res[name]
+            plain = windows[kname][1]
+            unsharded = float(metrics.rmse(X[H:], final_fn(X, Ui)))
+            close(world1, unsharded, TOL["sharded_rmse"][0],
+                  f"{name}: world-1 RMSE vs the unsharded kernel's")
+            k7_unsharded_err[name] = abs(world1 - unsharded)
+            close(blocks, world1, TOL["sharded_rmse"][0],
+                  f"{name}: {K7_BLOCKS} offset blocks vs world 1")
+            want = float(metrics.rmse(X[H:], plain(X, Ui)))
+            close(world1, want, TOL["rmse"][0], f"{name}: world-1 RMSE vs the plain versions'")
+            err[name] = abs(world1 - want)
+            ms[name] = cuda_event_time(
+                lambda: sharded.shardmap_window_rmse(mesh1, final_fn, X, Ui, H), iters=20)
+            wrapper_ms[name] = cuda_event_time(lambda: wrapper(mesh1, X, Ui), iters=20)
+            plain_ms[name] = cuda_event_time(lambda: metrics.rmse(X[H:], plain(X, Ui)), iters=2,
+                                             warmup=0)
+            bounds[name] = (large[kname]["bound_ms"], large[kname]["bound_by"])
+            shapes[name] = large[kname]["shape"] + f", world 1 ({K7_BACKEND})"
+            print(f"{name}: {ms[name]:.4f} ms with the all-reduce; the bare kernel "
+                  f"{large[kname]['ms']:.4f} ms; the wrapper, which reads the coefficients "
+                  f"back to the host on every call, {wrapper_ms[name]:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+
+    # 7. K8: the ceiling probes -------------------------------------------------------
+    def clocks():
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+            check=True).stdout.strip()
+
+    L = cp.LANES
+    probes = {  # name: (measure, launch, plain, budget kwargs, work units per call, unit)
+        "fma_peak": (cp.measure_fma_peak, cp.launch_fma_peak, cp.fma_peak_plain, {},
+                     3 * L * cp.ITERS["fma_peak"] * cp.STREAMS, "flops/s"),
+        "transcendental_peak": (
+            cp.measure_transcendental_peak, cp.launch_transcendental_peak,
+            cp.transcendental_peak_plain, {}, L * cp.ITERS["transcendental_peak"] * cp.STREAMS,
+            "sinf/s"),
+        "fma_tree_peak": (cp.measure_fma_tree_peak, cp.launch_fma_tree_peak,
+                          cp.fma_tree_peak_plain, {},
+                          cp.FMA_TREE_FLOPS_PER_ITER * L * cp.ITERS["fma_tree_peak"], "flops/s"),
+        "quat_mix_peak": (cp.measure_quat_mix_peak, cp.launch_quat_mix_peak,
+                          cp.quat_mix_peak_plain, {"method": "rk4"},
+                          L * cp.ITERS["quat_mix_peak"], "quat13 RK4 steps/s"),
+    }
+    k8_launches = {}
+
+    def k8_path():
+        out = {}
+        for name, (measure, _, _, kw, _, unit) in probes.items():
+            sweep = {b: measure(block=b, device=dev, **kw) for b in PROBE_BLOCKS}
+            best = max(sweep, key=sweep.get)
+            out[name] = (sweep[best], best, sweep)
+            print(f"K8 {name}: " + ", ".join(f"block {b}: {r:.6e}" for b, r in sweep.items())
+                  + f" {unit}; clocks.sm, power.draw, power.limit: {clocks()}")
+        out["quat_mix_euler"] = cp.measure_quat_mix_peak(
+            "euler", block=out["quat_mix_peak"][1], device=dev)
+        print(f"K8 quat_mix_peak at the Euler budget: {out['quat_mix_euler']:.6e} quat13 Euler "
+              f"steps/s; clocks.sm, power.draw, power.limit: {clocks()}")
+        return out
+
+    rates = drive("K8 probes", list(probes), k8_path, into=k8_launches)
+    xs = torch.from_numpy(rng.uniform(0.3, 0.7, size=L).astype(np.float32)).to(dev)
+    k8_meta = {}
+
+    def probe_err(name, launch, plain, block, kw):
+        got, want = launch(xs, CHECK_ITERS, block=block, **kw), plain(xs, CHECK_ITERS, **kw)
+        if name == "fma_peak":
+            print("fma_peak: held by its increment over the streams' starting sum")
+            got, want = cp.fma_peak_increment(xs, got), cp.fma_peak_increment(xs, want)
+        return max_err(got, want, name)
+
+    for name, (_, launch, plain, kw, work, unit) in probes.items():
+        rate, block, sweep = rates[name]
+        err[name] = probe_err(name, launch, plain, block, kw)
+        ms[name] = 1e3 * work / rate
+        plain_ms[name] = cuda_event_time(lambda: plain(xs, CHECK_ITERS, **kw), iters=2)
+        k8_meta[name] = dict(
+            rate=rate, rate_unit=unit, block=block, sweep={str(b): r for b, r in sweep.items()},
+            lanes=L, iters=cp.ITERS[name], check_iters=CHECK_ITERS,
+            kernel_ms_at_check_iters=cuda_event_time(
+                lambda: launch(xs, CHECK_ITERS, block=block, **kw), iters=20))
+    ops_per_unit = {"fma_peak": 1, "transcendental_peak": TRIG_OPS + 2, "fma_tree_peak": 1,
+                    "quat_mix_peak": quat_ops("rk4")}
+    for name, (*_, work, _) in probes.items():
+        bounds[name] = bound(work * ops_per_unit[name], 8 * L)
+        shapes[name] = (f"{L} lanes x {cp.ITERS[name]} iterations at {k8_meta[name]['block']} "
+                        f"threads per block; plain version at {CHECK_ITERS} iterations")
+    k8_meta["quat_mix_peak"]["rate_euler"] = rates["quat_mix_euler"]
+    # the Euler budget's instantiation, quat_mix_kernel<118, 2, 14>, prices K5 and K7
+    print("quat_mix_peak at the Euler budget:")
+    mix_err = {"rk4": err["quat_mix_peak"],
+               "euler": probe_err("quat_mix_peak", cp.launch_quat_mix_peak,
+                                  cp.quat_mix_peak_plain, rates["quat_mix_peak"][1],
+                                  {"method": "euler"})}
+    err["quat_mix_peak"] = max(mix_err.values())
+    k8_meta["quat_mix_peak"].update(max_abs_err_rk4=mix_err["rk4"],
+                                    max_abs_err_euler=mix_err["euler"])
+
+    # each probe's loop must hold its work: (function name part, probe, check)
+    mix_plans = [cp.quat_mix_plan(QUAT_BUDGET[m]) for m in ("rk4", "euler")]
+    sass_checks = [
+        ("fma_peak_kernel", "fma_peak",
+         lambda loop, total: loop["FFMA"] >= cp.STREAMS and loop["FFMA"] == loop["FMUL"]),
+        ("sin_peak_kernel", "transcendental_peak",      # exact sinf: no MUFU.SIN
+         lambda loop, total: total["MUFU.SIN"] == 0 and loop["FFMA"] >= cp.STREAMS),
+        ("fma_tree_kernel", "fma_tree_peak",
+         lambda loop, total: loop["FFMA"] >= cp.CHAINS * cp.DEPTH),
+    ] + [(f"quat_mix_kernelILi{pl['horner']}ELi{pl['n_rsqrt']}E", "quat_mix_peak",
+          lambda loop, total, pl=pl: (loop["FFMA"] >= pl["horner"]
+                                      and loop["MUFU.RSQ"] == pl["n_rsqrt"]))
+         for pl in mix_plans]
+    sass = cp.sass_loop_counts("probes")
+    if sass is None:
+        print("SASS: cuobjdump not found; loop bodies not read")
+    else:
+        for key, probe, ok in sass_checks:
+            fns = [fn for fn in sass if key in fn]
+            if len(fns) != 1:
+                fail(f"SASS: {len(fns)} functions match {key}")
+            loop, total = sass[fns[0]]["loop"], sass[fns[0]]["total"]
+            counts = {op: n for op, n in sorted(loop.items())
+                      if op in ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP")
+                      or op.startswith("MUFU")}
+            print(f"SASS {key}: loop body {counts} of {sum(loop.values())} instructions; "
+                  f"whole function FFMA {total['FFMA']}, "
+                  f"MUFU {sum(n for op, n in total.items() if op.startswith('MUFU'))}")
+            k8_meta[probe].setdefault("sass_loop", {})[key] = counts
+            if not ok(loop, total):
+                fail(f"SASS of {fns[0]}: the loop body does not hold the probe's work")
+
+    # 8. ceilings from the measured rates ----------------------------------------------
+    tree = rates["fma_tree_peak"][0]
+    sin_rate = rates["transcendental_peak"][0]
+    mix = {"rk4": rates["quat_mix_peak"][0], "euler": rates["quat_mix_euler"]}
+    sin_price = tree / sin_rate - 2
+    rsqrt_price = (tree / mix["rk4"] - 2 * QUAT_BUDGET["rk4"]["slots"]) / QUAT_BUDGET["rk4"]["sqrt"]
+    print(f"measured prices in FMA-tree flops: one sinf {sin_price:.2f} (the probe's own FFMA "
+          f"taken out), one rsqrtf {rsqrt_price:.2f} (a quat13 RK4 step's {QUAT_BUDGET['rk4']['slots']} "
+          f"issue slots at 2 flops each taken out, cheap ops priced as one slot)")
+    print(f"FMA-tree rate {tree:.6e} flops/s = {tree / FP32_PEAK:.4f} of {FP32_PEAK:.3g}")
+
+    def row_ceiling(n_steps, method, extra_flops=0):
+        b = ROW_BUDGET[method]
+        return 1e3 * n_steps * ((b["flops"] + extra_flops + DIV_OPS * b["div"]) / tree
+                                + b["trig"] / sin_rate)
+
+    n_app, n_big = (N_REC - H) * H, N_LARGE * H
+    ceiling = {
+        "rollout_final": row_ceiling(steps, "rk4"),
+        "shared_tau": 1e3 * T_ROLL * act_ops / tree,
+        "batched_rollout": row_ceiling(steps, "rk4", act_ops),
+        "window_eval": row_ceiling(n_app, "euler", act_ops),
+        "window_eval_wrench": row_ceiling(n_app, "euler"),
+        "window_eval_quat": 1e3 * n_app / mix["euler"],
+        "rollout_final_quat": 1e3 * steps / mix["rk4"],
+    }
+    ceiling_large = {"window_eval": row_ceiling(n_big, "euler", act_ops),
+                     "window_eval_wrench": row_ceiling(n_big, "euler"),
+                     "window_eval_quat": 1e3 * n_big / mix["euler"]}
+    for name, (kname, *_) in k7.items():
+        ceiling[name] = ceiling_large[kname]
+    for name in ceiling:      # the probes price operations; bytes keep their bound
+        if bounds[name][1] == "bytes":
+            ceiling[name] = max(ceiling[name], bounds[name][0])
+    for name, c in ceiling.items():
+        print(f"ceiling {name}: {c:.4f} ms; kernel {ms[name]:.4f} ms = {c / ms[name]:.3f} of it"
+              + ("  (FASTER than the additive ceiling)" if ms[name] < c else ""))
+    for name, c in ceiling_large.items():
+        large[name]["ceiling_ms"] = c
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device query")
 
-    # 6. results ------------------------------------------------------------------
+    # 9. results ------------------------------------------------------------------
     src = "bluerov2_dynamics_tpu_torch/csrc/"
+    k7_src = "bluerov2_dynamics_tpu/parallel/sharded.py:117 _shardmap_window_rmse"
     kernels_meta = [
         ("rollout_final", "rollout.cu",
          "bluerov2_dynamics_tpu/ops/pallas_rollout.py:208 make_rollout_final_pallas"),
@@ -451,21 +690,41 @@ def main() -> None:
          "bluerov2_dynamics_tpu/ops/pallas_quat.py:143 _make_quat_window_kernel"),
         ("rollout_final_quat", "quat.cu",
          "bluerov2_dynamics_tpu/ops/pallas_quat.py:170 make_rollout_final_pallas_quat"),
+        ("sharded_window_eval", "window_eval.cu", k7_src),
+        ("sharded_window_eval_wrench", "window_eval.cu", k7_src),
+        ("sharded_window_eval_quat", "quat.cu", k7_src),
+        ("fma_peak", "probes.cu", "bench.py:115 measure_vpu_fma_peak (pallas_call :150)"),
+        ("transcendental_peak", "probes.cu",
+         "bench.py:165 measure_vpu_transcendental_peak (pallas_call :196)"),
+        ("fma_tree_peak", "probes.cu", "bench.py:209 measure_vpu_fma_tree_peak (pallas_call :250)"),
+        ("quat_mix_peak", "probes.cu", "bench.py:263 measure_quat_mix_peak (pallas_call :354)"),
     ]
+    counts = {**launches, **k8_launches,
+              **{name: k7_launches[v[0]] for name, v in k7.items()}}
     kernels = []
     for name, source, replaces in kernels_meta:
-        rtol, atol = TOL[name]
+        rtol, atol = TOL["rmse"] if name in k7 else TOL[name]
         entry = dict(name=name, route="cuda", source=src + source, replaces=replaces,
-                     launches=launches[name], max_abs_err=err[name], max_abs_diff=err[name],
+                     launches=counts[name], max_abs_err=err[name], max_abs_diff=err[name],
                      tol=dict(rtol=rtol, atol=atol), ms=ms[name], kernel_ms=ms[name],
                      plain_ms=plain_ms[name], bound_ms=bounds[name][0],
-                     bound_by=bounds[name][1], library_ms=None, shape=shapes[name])
+                     bound_by=bounds[name][1], library_ms=None, shape=shapes[name],
+                     ceiling_ms=ceiling.get(name))
         if name in large:
             entry["large"] = large[name]
+        if name in k8_meta:
+            entry.update(k8_meta[name])
+        if name in wrapper_ms:
+            rtol, atol = TOL["sharded_rmse"]
+            entry.update(wrapper_ms=wrapper_ms[name],
+                         max_abs_err_vs_unsharded_kernel=k7_unsharded_err[name],
+                         tol_vs_unsharded_kernel=dict(rtol=rtol, atol=atol))
         if name == "batched_rollout":
             entry["checked"] = (f"{B_ROLL - n_near} of {B_ROLL} trajectories; {n_near} near the "
                                 f"gimbal singularity left out (max|kernel - plain| {near_diff:.3e})")
         kernels.append(entry)
+    print(f"measured prices: " + json.dumps({"sinf_flops": sin_price, "rsqrtf_flops": rsqrt_price,
+                                              "fma_tree_share_of_peak": tree / FP32_PEAK}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

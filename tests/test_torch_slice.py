@@ -157,22 +157,24 @@ def test_sync_and_time_fn_on_host_tensors():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Import every module of the port in a fresh interpreter and check
-    ``sys.modules`` by exact name: the port's own name starts with the JAX
-    package's, so a prefix test would be wrong."""
+    """Import every module of the port and ``chip_smoke.py`` in a fresh
+    interpreter and check ``sys.modules`` by exact name: the port's own
+    name starts with the JAX package's, so a prefix test would be wrong."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
         "import bluerov2_dynamics_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 21, names\n"
+        "assert len(names) >= 31, names\n"
         "for m in ('ops.quaternion', 'ops.cuda_quat', 'data.wrench', 'data.csv_loader',\n"
-        "          'apps.tank_wrench_comp', 'apps.tank_wrench_quat'):\n"
+        "          'apps.tank_wrench_comp', 'apps.tank_wrench_quat', 'parallel.mesh',\n"
+        "          'parallel.sharded', 'parallel.launch', 'ops.cuda_probes', 'eval.op_counts'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
         "def banned(m):\n"
         "    return any(m == b or m.startswith(b + '.') for b in\n"
-        "               ('jax', 'jaxlib', 'flax', 'bluerov2_dynamics_tpu'))\n"
+        "               ('jax', 'jaxlib', 'flax', 'bench', 'bluerov2_dynamics_tpu'))\n"
         "print(sorted(m for m in sys.modules if banned(m)))\n"
     )
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
