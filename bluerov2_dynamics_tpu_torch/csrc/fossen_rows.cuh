@@ -12,8 +12,9 @@
 // registers as float x[12] or x[13]; every loop over it unrolls, so no
 // array ever reaches local memory.
 //
-// Numerics: f32 throughout, exact sinf/cosf (never __sinf, never
-// --use_fast_math), IEEE division, and the same association order as the
+// Numerics: f32 throughout, exact sincosf (never __sincosf, never
+// --use_fast_math; its sine and cosine are sinf's and cosf's bits from one
+// range reduction), IEEE division, and the same association order as the
 // plain version.  nvcc contracts a*b+c into one FMA, which is the only
 // source of last-bit differences against the plain version, apart from
 // rsqrtf in the quaternion normalise (not correctly rounded; the plain
@@ -104,9 +105,12 @@ __device__ __forceinline__ void rhs_rows(const RowConsts& k, const float* x,
   const float phi = x[3], theta = x[4];
   const float pp = x[9], q = x[10], r = x[11];
 
-  const float cphi = cosf(phi), sphi = sinf(phi);
-  const float cth = cosf(theta), sth = sinf(theta);
-  const float cpsi = cosf(x[5]), spsi = sinf(x[5]);
+  // one range reduction per angle: nvcc shares the fast path of a sinf and
+  // a cosf of one argument but keeps a Payne-Hanek branch region for each
+  float sphi, cphi, sth, cth, spsi, cpsi;
+  sincosf(phi, &sphi, &cphi);
+  sincosf(theta, &sth, &cth);
+  sincosf(x[5], &spsi, &cpsi);
 
   const float R[9] = {
       cpsi * cth,

@@ -6,12 +6,19 @@
 // that feeds it.
 //
 // What bounds it on an H100: operations.  Per trajectory and RK4 step the
-// row step does ~684 flops, 8 divisions and 24 exact sinf/cosf; the only
-// traffic is x0 read once, xT written once and tau_seq (12 KB at T=500),
-// so the FP32 pipes, not memory, set the floor.  The design keeps the 12
-// states of a trajectory in registers for all T steps (one thread per
-// start) and stages tau_seq through shared memory in chunks, where every
-// thread of the block reads the same word (a broadcast, no bank conflict).
+// row step does ~684 flops, 8 divisions and 12 exact sincosf (24 sines and
+// cosines); the only traffic is x0 read once, xT written once and tau_seq
+// (12 KB at T=500), so the FP32 pipes, not memory, set the floor.  The
+// design keeps the 12 states of a trajectory in registers for all T steps
+// (one thread per start) and stages tau_seq through shared memory in
+// chunks, where every thread of the block reads the same word (a
+// broadcast, no bank conflict).  Each angle's sine and cosine come from one
+// range reduction (fossen_rows.cuh).  Blocks of kBlock = 256 threads (by
+// measurement: 64 and 128 were 1-2% slower, PERF.md); __launch_bounds__
+// holds the kernel to 128 registers, so all 65,536 trajectories of the
+// bench shape are resident in one wave (2 x 256 threads on each of 132
+// SMs).  No tensor cores: the work is a recurrence of scalar f32
+// operations with no matrix product to give them.
 //
 // The prologue is one block: the curve runs over all (t, thruster) pairs in
 // parallel, the lag scan is sequential in t but independent per thruster
@@ -23,6 +30,8 @@
 namespace {
 
 constexpr int kTauChunk = 256;  // steps of tau_seq staged per pass (6 KB)
+constexpr int kBlock = 256;     // threads per block
+constexpr int kMinBlocks = 2;   // 65,536 / (2 x 256) = 128 registers a thread at most
 
 __global__ void tau_seq_kernel(ThrusterConsts c, const float* __restrict__ U,
                                float* __restrict__ F, float* __restrict__ tau,
@@ -46,9 +55,9 @@ __global__ void tau_seq_kernel(ThrusterConsts c, const float* __restrict__ U,
 }
 
 template <int METHOD>
-__global__ void rollout_kernel(RowConsts k, const float* __restrict__ tau_seq,
-                               const float* __restrict__ x0, float* __restrict__ xT,
-                               int B, int T) {
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+rollout_kernel(RowConsts k, const float* __restrict__ tau_seq, const float* __restrict__ x0,
+               float* __restrict__ xT, int B, int T) {
   __shared__ float s_tau[kTauChunk * 6];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = b < B;
@@ -86,15 +95,22 @@ int brov2_tau_seq(const void* consts, const float* U, float* F_scratch, float* t
 int brov2_rollout_final(const void* consts, const float* tau_seq, const float* x0, float* xT,
                         int B, int T, int method, void* stream) {
   const RowConsts k = *static_cast<const RowConsts*>(consts);
-  constexpr int kThreads = 128;
-  const dim3 grid((B + kThreads - 1) / kThreads);
+  const dim3 grid((B + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (method == 0) {
-    rollout_kernel<0><<<grid, kThreads, 0, s>>>(k, tau_seq, x0, xT, B, T);
+    rollout_kernel<0><<<grid, kBlock, 0, s>>>(k, tau_seq, x0, xT, B, T);
   } else {
-    rollout_kernel<1><<<grid, kThreads, 0, s>>>(k, tau_seq, x0, xT, B, T);
+    rollout_kernel<1><<<grid, kBlock, 0, s>>>(k, tau_seq, x0, xT, B, T);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The block size brov2_rollout_final launches, and the resident blocks per
+// SM of rollout_kernel<method> at that size.
+int brov2_rollout_occupancy(int method, int* block, int* blocks_per_sm) {
+  *block = kBlock;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, method == 0 ? rollout_kernel<0> : rollout_kernel<1>, kBlock, 0));
 }
 
 const char* brov2_error_string(int code) {

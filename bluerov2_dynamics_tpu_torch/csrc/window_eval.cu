@@ -4,30 +4,25 @@
 // map -> one Euler/RK4 step with tau held across its stages.  Writes the
 // (N - H, 12) endpoint states.
 //
-// K3: the same body with per-trajectory commands: B trajectories from
-// X[b] under U[t, b, :] for T steps, each from a fresh lag state; writes
-// the (B, 12) final states.  A template flag changes only the input index.
-//
 // K4: sliding-window endpoints of the wrench-input euler12 model: H steps
 // from X[s] under the body wrench TAU[s + t]; no curve and no lag.
 //
 // Replace, in the JAX package, ops/pallas_eval.py::
 // _make_thruster_window_kernel (K2, through window_pallas_call /
-// make_endpoint_final_pallas), make_batched_rollout_pallas (K3) and
-// _make_wrench_window_kernel (K4, through make_endpoint_final_pallas_wrench).
+// make_endpoint_final_pallas) and _make_wrench_window_kernel (K4, through
+// make_endpoint_final_pallas_wrench).  K3, the per-trajectory rollout, is
+// in batched_rollout.cu.
 //
 // What bounds them on an H100: their work is operations (per start and
-// Euler step ~156 flops, 2 divisions and 6 sinf/cosf of the row step, plus
-// ~300 flops of actuation in K2/K3), but at the apps' shapes (9,065
-// starts, H=100) K2 and K4 fill fewer than one wave of 132 SMs and each
-// thread runs 100 dependent steps, so the dependency chain of one thread
-// (latency) sets their time.  K3 at 65,536 x 500 RK4 streams a 1 GB U
-// once, which is under its operation bound.
+// Euler step ~156 flops, 2 divisions and 3 sincosf of the row step, plus
+// ~300 flops of actuation in K2), but at the apps' shapes (9,065 starts,
+// H=100) K2 and K4 fill fewer than one wave of 132 SMs and each thread
+// runs 100 dependent steps, so the dependency chain of one thread
+// (latency) sets their time.
 // The design: one thread per start, 12 states (and 24 lag states) in
 // registers for all steps, inputs read directly (no pre-shifted copy):
 // the rows of neighbouring starts are neighbouring, so a warp's reads
-// coalesce; in K2/K4 every row is reused from L1/L2 by the H starts that
-// need it, in K3 every row is read exactly once.
+// coalesce; every row is reused from L1/L2 by the H starts that need it.
 #include <cstdint>
 
 #include "fossen_rows.cuh"
@@ -36,9 +31,8 @@ namespace {
 
 constexpr int kThreads = 64;
 
-// PER_TRAJ = false: K2, input row s + t of U (N, 8).
-// PER_TRAJ = true:  K3, input row t * n_start + s of U (T, B, 8).
-template <int METHOD, bool USE_LAG, bool PER_TRAJ>
+// K2: input row s + t of U (N, 8).
+template <int METHOD, bool USE_LAG>
 __global__ void window_eval_kernel(RowConsts k, ThrusterConsts c,
                                    const float* __restrict__ X, const float* __restrict__ U,
                                    float* __restrict__ out, int n_start, int H) {
@@ -52,8 +46,7 @@ __global__ void window_eval_kernel(RowConsts k, ThrusterConsts c,
   for (int j = 0; j < 8; ++j) L[j][0] = L[j][1] = L[j][2] = 0.0f;
 
   for (int t = 0; t < H; ++t) {
-    const int64_t in_row = PER_TRAJ ? (int64_t)t * n_start + s : (int64_t)(s + t);
-    const float4* row = reinterpret_cast<const float4*>(U + in_row * 8);
+    const float4* row = reinterpret_cast<const float4*>(U + (int64_t)(s + t) * 8);
     const float4 lo = row[0], hi = row[1];
     const float u8[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     float F[8];
@@ -90,17 +83,16 @@ __global__ void window_eval_wrench_kernel(RowConsts k, const float* __restrict__
   for (int i = 0; i < 12; ++i) out[(int64_t)s * 12 + i] = x[i];
 }
 
-template <bool PER_TRAJ>
 void launch_thruster(const RowConsts& k, const ThrusterConsts& c, const float* X,
                      const float* U, float* out, int n_start, int H, int method,
                      int use_lag, cudaStream_t s) {
   const dim3 grid((n_start + kThreads - 1) / kThreads);
   if (method == 0) {
-    if (use_lag) window_eval_kernel<0, true, PER_TRAJ><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
-    else window_eval_kernel<0, false, PER_TRAJ><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
+    if (use_lag) window_eval_kernel<0, true><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
+    else window_eval_kernel<0, false><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
   } else {
-    if (use_lag) window_eval_kernel<1, true, PER_TRAJ><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
-    else window_eval_kernel<1, false, PER_TRAJ><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
+    if (use_lag) window_eval_kernel<1, true><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
+    else window_eval_kernel<1, false><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
   }
 }
 
@@ -112,19 +104,9 @@ extern "C" {
 int brov2_window_eval(const void* row_consts, const void* thr_consts, const float* X,
                       const float* U, float* out, int n_start, int H, int method,
                       int use_lag, void* stream) {
-  launch_thruster<false>(*static_cast<const RowConsts*>(row_consts),
-                         *static_cast<const ThrusterConsts*>(thr_consts), X, U, out,
-                         n_start, H, method, use_lag, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x0 (B, 12), U (T, B, 8), 16-byte aligned (the wrapper checks).
-int brov2_batched_rollout(const void* row_consts, const void* thr_consts, const float* x0,
-                          const float* U, float* out, int B, int T, int method,
-                          int use_lag, void* stream) {
-  launch_thruster<true>(*static_cast<const RowConsts*>(row_consts),
-                        *static_cast<const ThrusterConsts*>(thr_consts), x0, U, out,
-                        B, T, method, use_lag, static_cast<cudaStream_t>(stream));
+  launch_thruster(*static_cast<const RowConsts*>(row_consts),
+                  *static_cast<const ThrusterConsts*>(thr_consts), X, U, out, n_start, H, method,
+                  use_lag, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

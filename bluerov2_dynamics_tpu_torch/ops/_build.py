@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,12 +35,17 @@ _SIGNATURES = {
     "rollout": {
         "brov2_tau_seq": ([_P, _P, _P, _P, _I, _I, _P], _I),
         "brov2_rollout_final": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "brov2_rollout_occupancy": ([_I, _P, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
     "window_eval": {
         "brov2_window_eval": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "brov2_batched_rollout": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "brov2_window_eval_wrench": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "brov2_error_string": ([_I], ctypes.c_char_p),
+    },
+    "batched_rollout": {
+        "brov2_batched_rollout": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_batched_rollout_occupancy": ([_I, _I, _P, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
     "quat": {
@@ -130,6 +136,34 @@ def load_library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _libs[name] = lib
     return lib
+
+
+_PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_resources(log: str) -> dict:
+    """``{function: {"regs", "stack", "spill_stores", "spill_loads"}}`` from
+    the ``-Xptxas -v`` lines of a build log (mangled names)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[name]["regs"] = int(m.group(1))
+    return out
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -15,12 +15,14 @@ per-trajectory rollout, as CUDA kernels and their plain PyTorch versions.
   wrench-input euler12 model, ``X (N, 12)``, ``TAU (N, 6)``, with no curve
   and no lag (the T3 app's physics baseline).
 
-``csrc/window_eval.cu`` holds all three: one thread per start, the state
+``csrc/window_eval.cu`` holds K2 and K4: one thread per start, the state
 (and lag) in registers, inputs read directly (neighbouring starts read
 neighbouring rows, so a warp's loads coalesce; no pre-shifted copy of the
 input).  At the apps' shape (9,065 starts, H=100) K2 and K4 fill less than
 one wave of the H100's 132 SMs, so the latency of one thread's 100
-dependent steps, not a pipe, sets their time.  The plain versions run all
+dependent steps, not a pipe, sets their time.  ``csrc/batched_rollout.cu``
+holds K3: one thread per trajectory, each step's commands loaded into
+registers one step ahead (:func:`stage_plan`).  The plain versions run all
 starts at once as ``(n_start,)`` rows with the same step order and
 association as the kernels.
 
@@ -224,6 +226,47 @@ def endpoint_rmse_cuda(p, cfg, lag, X, U, dt: float, H: int, **kw):
     return rmse(X[H:].to(torch.float32), final)
 
 
+# K3's stage plan, the constants of csrc/batched_rollout.cu (kBlock,
+# kMinBlocks): a block runs BLOCK trajectories, one a thread, and each
+# thread holds DEPTH rows of its commands in registers (the row of the step
+# it computes and the next one's, in flight).  __launch_bounds__(BLOCK,
+# MIN_BLOCKS) caps a thread at REGISTERS // (MIN_BLOCKS x BLOCK) registers.
+BLOCK, MIN_BLOCKS = 256, 2        # by measurement (PERF.md)
+DEPTH = 2
+ROW_BYTES = 32                    # one trajectory's 8 float32 commands
+REGISTERS = 65_536                # 32-bit registers an H100 SM holds
+
+
+def stage_plan(B: int, T: int) -> dict:
+    """K3's launch plan for ``B`` trajectories of ``T`` steps: block size,
+    rows in flight a thread, grid, the register cap its launch bounds set,
+    and shared bytes (none: the rows stay in registers)."""
+    return dict(block=BLOCK, depth=DEPTH, n_blocks=-(-B // BLOCK), n_steps=T,
+                max_registers=REGISTERS // (MIN_BLOCKS * BLOCK), shared_bytes=0)
+
+
+def stage_loads(B: int, T: int):
+    """The command loads K3 makes, as ``(issued_at_step, step, trajectory,
+    source_offset_bytes, bytes)``, one a 16-byte half of a row: a thread
+    loads its row of step 0 before the step loop, and its row of step t at
+    the top of step t - 1, so each row lands while the step before it
+    computes.  No load past B or T."""
+    return [(max(0, t - 1), t, b, (t * B + b) * ROW_BYTES + half, 16)
+            for b in range(B) for t in range(T) for half in (0, 16)]
+
+
+def batched_rollout_occupancy(method: str = "rk4", use_lag: bool = True) -> tuple:
+    """``(block, resident blocks per SM)`` of K3 as it launches (the CUDA
+    occupancy query)."""
+    check_method(method)
+    lib = _build.load_library("batched_rollout")
+    block, n = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.brov2_batched_rollout_occupancy(
+        METHODS[method], int(use_lag), ctypes.byref(block), ctypes.byref(n)),
+        "batched_rollout occupancy")
+    return block.value, n.value
+
+
 def launch_batched_rollout(rc: RowConsts, tc: ThrusterConsts, x0, U, method: str,
                            use_lag: bool):
     """Launch K3 on ``x0 (B, 12)`` under ``U (T, B, 8)``."""
@@ -240,7 +283,7 @@ def launch_batched_rollout(rc: RowConsts, tc: ThrusterConsts, x0, U, method: str
     B, T = x0.shape[0], U.shape[0]
     if B == 0:
         return out
-    lib = _build.load_library("window_eval")
+    lib = _build.load_library("batched_rollout")
     with torch.cuda.device(x0.device):
         code = lib.brov2_batched_rollout(
             ctypes.addressof(rc), ctypes.addressof(tc), x0.data_ptr(), U.data_ptr(),

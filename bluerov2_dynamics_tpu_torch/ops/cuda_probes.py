@@ -19,7 +19,8 @@ ops as the card runs them.
   They raise on the CPU: a rate taken on the host is no device number.
 * :func:`sass_loop_counts` reads the built library with ``cuobjdump -sass``
   and counts the instructions of each probe's iteration loop, to show that
-  nvcc neither hoisted nor folded a recurrence.
+  nvcc neither hoisted nor folded a recurrence; :func:`step_loop` counts a
+  physics kernel's step loop, on its common path and in all.
 """
 
 from __future__ import annotations
@@ -301,7 +302,7 @@ def measure_quat_mix_peak(method: str = "rk4", lanes: int = LANES,
 # ---------------------------------------------------------------------------
 
 _FUNC = re.compile(r"^\s*Function\s*:\s*(\S+)")
-_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
 _TARGET = re.compile(r"BRA\s+(?:`\(\.L_x_(\d+)\)|(0x[0-9a-f]+))")
 _LABEL = re.compile(r"^\s*\.L_x_(\d+):")
 
@@ -310,33 +311,16 @@ def _opcode(op: str) -> str:
     return op if op.startswith("MUFU") else op.split(".")[0]
 
 
-def parse_sass(text: str) -> dict:
-    """``{function: {"total": Counter, "loop": Counter}}`` from
-    ``cuobjdump -sass`` text.  ``loop`` counts the opcodes of the
-    outermost loop: from the earliest backward branch target to the first
-    branch that returns there.  MUFU keeps its function (``MUFU.RSQ``);
-    other opcodes drop their modifiers."""
-    out, name, insns, labels = {}, None, [], {}
+def _functions(text: str) -> dict:
+    """``{function: [(address, opcode, predicated, branch target or None)]}``
+    from ``cuobjdump -sass`` text, with ``.L_x_`` labels resolved."""
+    funcs, name, insns, labels, pending = {}, None, [], {}, []
 
     def close():
-        if name is None:
-            return
-        total = Counter(_opcode(op) for _, op, _ in insns)
-        backs = []
-        for addr, op, args in insns:
-            m = _TARGET.search(op + args)
-            if m:
-                target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
-                if target is not None and target <= addr:
-                    backs.append((target, addr))
-        loop = Counter()
-        if backs:
-            lo = min(t for t, _ in backs)
-            hi = min(a for t, a in backs if t == lo)
-            loop = Counter(_opcode(op) for addr, op, _ in insns if lo <= addr <= hi)
-        out[name] = {"total": total, "loop": loop}
+        if name is not None:
+            funcs[name] = [(addr, op, pred, labels.get(t) if isinstance(t, str) else t)
+                           for addr, op, pred, t in insns]
 
-    pending = []
     for line in text.splitlines():
         f = _FUNC.match(line)
         if f:
@@ -353,18 +337,91 @@ def parse_sass(text: str) -> dict:
             for p in pending:
                 labels[p] = addr
             pending = []
-            insns.append((addr, m.group(2), m.group(3)))
+            t = _TARGET.search(m.group(3) + m.group(4))
+            target = None if t is None else (t.group(1) if t.group(1) else int(t.group(2), 16))
+            insns.append((addr, m.group(3), bool(m.group(2)), target))
     close()
+    return funcs
+
+
+def _loops(insns) -> list:
+    """Backward branches as ``(target, branch address)``."""
+    return [(t, a) for a, _, _, t in insns if t is not None and t <= a]
+
+
+def parse_sass(text: str) -> dict:
+    """``{function: {"total": Counter, "loop": Counter}}`` from
+    ``cuobjdump -sass`` text.  ``loop`` counts the opcodes of the
+    outermost loop: from the earliest backward branch target to the first
+    branch that returns there.  MUFU keeps its function (``MUFU.RSQ``);
+    other opcodes drop their modifiers."""
+    out = {}
+    for name, insns in _functions(text).items():
+        total = Counter(_opcode(op) for _, op, _, _ in insns)
+        backs, loop = _loops(insns), Counter()
+        if backs:
+            lo = min(t for t, _ in backs)
+            hi = min(a for t, a in backs if t == lo)
+            loop = Counter(_opcode(op) for addr, op, _, _ in insns if lo <= addr <= hi)
+        out[name] = {"total": total, "loop": loop}
     return out
+
+
+SLOW_REGION = 120   # instructions: a longer forward skip is program structure, not a slow path
+
+
+def step_loop(text: str, key: str) -> dict:
+    """The step loop of the one function whose mangled name holds ``key``:
+    the smallest loop that holds at least 90% of the largest loop's FFMA
+    (the outermost loop may be a chunk loop around it, and the exact
+    sinf's Payne-Hanek reduction has a short loop of its own).  ``static``
+    counts all its opcodes; ``fast`` leaves out the slow paths a thread
+    skips on the common path: each region jumped over by a predicated
+    forward branch, shorter than ``SLOW_REGION``, that holds a loop (the
+    Payne-Hanek reduction) or a CALL (the IEEE division's slow path)."""
+    funcs = [insns for name, insns in _functions(text).items() if key in name]
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} functions match {key!r}")
+    insns = funcs[0]
+
+    def ffma(lo, hi):
+        return sum(1 for a, op, _, _ in insns if lo <= a <= hi and op.startswith("FFMA"))
+
+    backs = _loops(insns)
+    if not backs:
+        raise ValueError(f"{key}: no loop")
+    most = max(ffma(t, a) for t, a in backs)
+    lo, hi = min((b for b in backs if ffma(*b) >= 0.9 * most), key=lambda b: b[1] - b[0])
+    body = [ins for ins in insns if lo <= ins[0] <= hi]
+    step = (insns[1][0] - insns[0][0]) if len(insns) > 1 else 16
+    skip = set()
+    for a, op, pred, t in body:
+        if op == "BRA" and pred and t is not None and a < t <= hi and (t - a) // step < SLOW_REGION:
+            region = [ins for ins in body if a < ins[0] < t]
+            if any(op2 == "CALL" or op2.startswith("CALL.") for _, op2, _, _ in region) or \
+                    any(t2 is not None and a < t2 <= ins_a for ins_a, _, _, t2 in region):
+                skip.update(ins[0] for ins in region)
+    return dict(window=(lo, hi),
+                static=Counter(_opcode(op) for _, op, _, _ in body),
+                fast=Counter(_opcode(op) for a, op, _, _ in body if a not in skip))
+
+
+def sass_text(name: str, path=None):
+    """``cuobjdump -sass`` of the built library ``csrc/<name>.cu`` (or of the
+    shared library at ``path``), or None where the toolkit has no
+    ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not shutil.which(tool):
+        return None
+    if path is None:
+        _build.build((name,))
+        path = _build.library_path(name)
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
 
 
 def sass_loop_counts(name: str = "probes"):
     """:func:`parse_sass` of the built library ``csrc/<name>.cu``, or None
     where the toolkit has no ``cuobjdump``."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not shutil.which(tool):
-        return None
-    _build.build((name,))
-    res = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
-                         text=True, timeout=120, check=True)
-    return parse_sass(res.stdout)
+    text = sass_text(name)
+    return None if text is None else parse_sass(text)

@@ -10,8 +10,10 @@ and only the final states ``(B, 12)`` are returned.
   turns ``U`` into the per-step wrench ``tau_seq (T, 6)`` (curve, lag,
   wrench map) and the rollout, one thread per start with its 12 states in
   registers for all T steps.  It is bound by operations on the H100 (~684
-  flops, 8 divisions and 24 exact sinf/cosf per RK4 step; x0, xT and
-  tau_seq are its only traffic).
+  flops, 8 divisions and 12 exact sincosf per RK4 step; x0, xT and
+  tau_seq are its only traffic).  Its block size is a constant of the
+  kernel, by measurement; :func:`rollout_occupancy` reports it with the
+  resident blocks per SM.
 * The plain version is the row form of the JAX kernel body
   (``make_hydro_rows`` / ``make_rhs_rows`` / ``rk4_rows``: the state is a
   12-tuple of ``(B,)`` tensors and every coefficient a Python float), with
@@ -310,6 +312,17 @@ def launch_tau_seq(consts: ThrusterConsts, U, use_lag: bool = True):
     _build.check(lib, rc, "shared_tau")
     _build.launches["shared_tau"] += 1
     return tau
+
+
+def rollout_occupancy(method: str = "rk4") -> tuple:
+    """``(block, resident blocks per SM)`` of K1 as it launches (the CUDA
+    occupancy query)."""
+    check_method(method)
+    lib = _build.load_library("rollout")
+    block, n = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.brov2_rollout_occupancy(METHODS[method], ctypes.byref(block),
+                                                  ctypes.byref(n)), "rollout occupancy")
+    return block.value, n.value
 
 
 def launch_rollout(consts: RowConsts, tau_seq, x0, method: str):

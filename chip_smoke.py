@@ -9,7 +9,12 @@ Phases (any failure raises and ends the run with a non-zero code):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every kernel from ``bluerov2_dynamics_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; then, for the two
+   redesigned euler12 RK4 rollouts K1 and K3, their registers, stack
+   frame and spill bytes (ptxas), resident blocks per SM at the launched
+   block size (the CUDA occupancy query), block size and stage plan, and
+   the step loop's opcode counts (``cuobjdump -sass``); either spilling,
+   or needing a second wave at the bench shape, fails the run;
 3. main paths, each with every launch count set to 0 just before it and
    read just after; each must have launched its kernels:
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
@@ -174,6 +179,54 @@ def gimbal_near(fossen, p, cfg, lag, x0, U):
     return peak >= GIMBAL_MARGIN
 
 
+STEP_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "MUFU.RCP", "F2I", "I2FP", "FCHK", "BRA",
+            "BSSY", "BSYNC", "LDS", "LDG", "BAR")
+
+
+def redesigned_report(logs) -> dict:
+    """K1's and K3's resources, residency, plan and step-loop opcode counts
+    (RK4, lag); fails if either spills or needs a second wave at the bench
+    shape."""
+    from bluerov2_dynamics_tpu_torch.ops import _build
+    from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
+    from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
+    from bluerov2_dynamics_tpu_torch.ops import cuda_rollout as cr
+
+    plan = ce.stage_plan(B_ROLL, T_ROLL)
+    kernels = {  # name: (library, mangled-name part, (block, resident blocks per SM), plan)
+        "rollout_final": ("rollout", "14rollout_kernelILi1EE", cr.rollout_occupancy(), None),
+        "batched_rollout": ("batched_rollout", "22batched_rollout_kernelILi1ELb1EE",
+                            ce.batched_rollout_occupancy(), plan),
+    }
+    out = {}
+    for name, (lib, key, (block, per_sm), pl) in kernels.items():
+        res = [r for fn, r in _build.ptxas_resources(logs[lib]).items() if key in fn]
+        if len(res) != 1:
+            fail(f"ptxas: {len(res)} functions match {key}")
+        res = res[0]
+        n_blocks = -(-B_ROLL // block)
+        waves = -(-n_blocks // (per_sm * torch.cuda.get_device_properties(0).multi_processor_count))
+        print(f"{name}: {res['regs']} registers, {res['stack']}-byte stack frame, spill "
+              f"{res['spill_stores']}/{res['spill_loads']} bytes (stores/loads); {block} threads "
+              f"a block, {per_sm} resident blocks per SM: {n_blocks} blocks in {waves} wave(s)"
+              + (f"; stage plan {pl}" if pl else ""))
+        if res["spill_stores"] or res["spill_loads"]:
+            fail(f"{name} spills {res['spill_stores']}/{res['spill_loads']} bytes")
+        if waves > 1:
+            fail(f"{name}: {n_blocks} blocks of {block} threads need {waves} waves")
+        out[name] = dict(regs=res["regs"], stack=res["stack"], blocks_per_sm=per_sm, block=block)
+        text = cp.sass_text(lib)
+        if text is None:
+            print(f"{name}: cuobjdump not found; step loop not read")
+            continue
+        loop = cp.step_loop(text, key)
+        counts = {op: loop["fast"].get(op, 0) for op in STEP_OPS if loop["static"].get(op)}
+        print(f"{name} step loop: {sum(loop['fast'].values())} instructions on the common path "
+              f"({sum(loop['static'].values())} with the slow paths): {counts}")
+        out[name]["step_loop"] = counts
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -223,6 +276,7 @@ def main() -> None:
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
     if spills:
         fail(f"a probe spills, so it measures local memory and not the card's FP32 rate: {spills}")
+    redesigned = redesigned_report(logs)
 
     # 3. inputs and the main paths ----------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -682,7 +736,7 @@ def main() -> None:
          "(the lax.scan feeding K1, :256)"),
         ("window_eval", "window_eval.cu",
          "bluerov2_dynamics_tpu/ops/pallas_eval.py:36 _make_thruster_window_kernel"),
-        ("batched_rollout", "window_eval.cu",
+        ("batched_rollout", "batched_rollout.cu",
          "bluerov2_dynamics_tpu/ops/pallas_eval.py:285 make_batched_rollout_pallas"),
         ("window_eval_wrench", "window_eval.cu",
          "bluerov2_dynamics_tpu/ops/pallas_eval.py:250 _make_wrench_window_kernel"),
@@ -719,6 +773,9 @@ def main() -> None:
             entry.update(wrapper_ms=wrapper_ms[name],
                          max_abs_err_vs_unsharded_kernel=k7_unsharded_err[name],
                          tol_vs_unsharded_kernel=dict(rtol=rtol, atol=atol))
+        if name in redesigned:
+            entry.update(regs=redesigned[name]["regs"],
+                         blocks_per_sm=redesigned[name]["blocks_per_sm"], redesigned="PR 4")
         if name == "batched_rollout":
             entry["checked"] = (f"{B_ROLL - n_near} of {B_ROLL} trajectories; {n_near} near the "
                                 f"gimbal singularity left out (max|kernel - plain| {near_diff:.3e})")

@@ -5,10 +5,13 @@ plain versions where a card exists.
 
 Tolerances in float32: rtol 2e-4 / atol 2e-5 (``TOL``), the JAX package's
 own for these kernels (tests/test_pallas_eval.py); atol 2e-5 alone
-(``TOL_ROWS``) for the new K3/K4 cases against the Pallas kernel and for
-K4 on the card, where both sides do the same operations in the same order
-on states of order one.
+(``TOL_ROWS``) for the K3/K4 cases against the Pallas kernel and for K4
+and K3's edge shapes on the card, where both sides do the same operations
+in the same order on states of order one.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -34,6 +37,14 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _params(dt=0.02):
+    j = (jparams.fossen_params(dtype=jnp.float32), jparams.thruster_config(dtype=jnp.float32),
+         jparams.lag_params(dt, dtype=jnp.float32))
+    t = (tparams.fossen_params(device="cpu"), tparams.thruster_config(device="cpu"),
+         tparams.lag_params(dt, device="cpu"))
+    return j, t
 
 
 def _data(rng, N=60, dt=0.02):
@@ -136,6 +147,67 @@ def test_plain_batched_rollout_matches_pallas_interpret(method, use_lag, rng):
                                    dt, method, use_lag)
     assert got.shape == (12, 12)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_ROWS)
+
+
+# the edges K3 masks: T below and across its two rows in flight, B across
+# the block
+EDGE_T, EDGE_B = (1, 3, 7), (1, 65, 130)
+EDGE_RUNS = [("euler", True), ("rk4", True), ("euler", False), ("rk4", False)]
+
+
+@pytest.mark.parametrize("method,use_lag", EDGE_RUNS)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("T", EDGE_T)
+def test_plain_batched_rollout_matches_pallas_at_edge_shapes(T, B, method, use_lag, rng):
+    (jp, jcfg, jlag), (tp, tcfg, tlag) = _params()
+    x0, U = _batched_inputs(rng, B=B, T=T)
+    want = jpe.make_batched_rollout_pallas(jp, jcfg, jlag, 0.02, method=method, block_b=64,
+                                           interpret=True, use_lag=use_lag)(
+        jnp.asarray(x0), jnp.asarray(U))
+    got = ce.batched_rollout_plain(tp, tcfg, tlag, torch.from_numpy(x0), torch.from_numpy(U),
+                                   0.02, method, use_lag)
+    assert got.shape == (B, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_ROWS)
+
+
+@pytest.mark.parametrize("B", (*EDGE_B, 300))
+@pytest.mark.parametrize("T", EDGE_T)
+def test_stage_plan_fits_and_covers_every_step_once(T, B):
+    """Every (step, trajectory) is loaded exactly once, by 16-byte-aligned
+    loads of 16 bytes, one step before the step that uses it, and nothing
+    past B or T; the grid covers B and the plan takes no shared memory."""
+    plan = ce.stage_plan(B, T)
+    assert plan["shared_bytes"] == 0 and plan["depth"] == 2
+    assert plan["n_blocks"] * plan["block"] >= B > (plan["n_blocks"] - 1) * plan["block"]
+    loaded = {}
+    for at, t, b, src, nbytes in ce.stage_loads(B, T):
+        assert nbytes == 16 and src % 16 == 0 and 0 <= src < T * B * ce.ROW_BYTES
+        assert src // ce.ROW_BYTES == t * B + b and 0 <= b < B
+        assert at == max(0, t - 1)
+        loaded[t, b] = loaded.get((t, b), 0) + nbytes
+    assert loaded == {(t, b): ce.ROW_BYTES for t in range(T) for b in range(B)}
+
+
+def test_stage_plan_keeps_the_bench_shape_in_one_wave_by_its_launch_bounds():
+    """At 65,536 trajectories the launch bounds make every block resident
+    at once on the H100's 132 SMs: the blocks one SM must hold fit its
+    register file at the bounds' cap (ptxas spills rather than exceed it,
+    and chip_smoke.py fails on a spill and on a second wave)."""
+    plan = ce.stage_plan(65_536, 500)
+    assert -(-plan["n_blocks"] // 132) <= ce.MIN_BLOCKS
+    assert ce.MIN_BLOCKS * plan["block"] * plan["max_registers"] <= ce.REGISTERS
+    assert plan["max_registers"] >= 128      # the row step needs about 100
+
+
+def test_stage_plan_mirrors_the_kernel_constants():
+    """``BLOCK`` and ``MIN_BLOCKS`` are the kernel's ``kBlock`` and
+    ``kMinBlocks``."""
+    src = (Path(ce.__file__).parent.parent / "csrc" / "batched_rollout.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(r"constexpr int (kBlock|kMinBlocks) = (\d+);", src)}
+    assert got == {"kBlock": ce.BLOCK, "kMinBlocks": ce.MIN_BLOCKS}
+    assert "__launch_bounds__(kBlock, kMinBlocks)" in src
+    assert ce.stage_plan(10, 10) == dict(block=ce.BLOCK, depth=2, n_blocks=1, n_steps=10,
+                                         max_registers=128, shared_bytes=0)
 
 
 def test_batched_rollout_gives_each_trajectory_its_own_commands(rng):
@@ -252,3 +324,33 @@ def test_wrench_window_kernel_matches_plain_on_card(method, cuda, rng):
     assert _build.launches["window_eval_wrench"] == before + 1
     want = ce.endpoint_final_wrench_plain(p, X, TAU, dt, 20, method)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL_ROWS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,use_lag", EDGE_RUNS)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("T", EDGE_T)
+def test_batched_rollout_kernel_at_edge_shapes_on_card(T, B, method, use_lag, cuda, rng):
+    """The kernel at ragged B and T, below and across its two rows in
+    flight."""
+    p, cfg, lag = (c.to(cuda) for c in _params()[1])
+    x0, U = (torch.from_numpy(a).to(cuda) for a in _batched_inputs(rng, B=B, T=T))
+    rc, tc = ce.row_consts(p, 0.02), ce.thruster_consts(cfg, lag)
+    want = ce.batched_rollout_plain(p, cfg, lag, x0, U, 0.02, method, use_lag)
+    before = _build.launches["batched_rollout"]
+    got = ce.launch_batched_rollout(rc, tc, x0, U, method, use_lag)
+    torch.cuda.synchronize()
+    assert _build.launches["batched_rollout"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL_ROWS)
+
+
+@pytest.mark.cuda
+def test_batched_rollout_rejects_a_misaligned_U_on_card(cuda):
+    p, cfg, lag = (c.to(cuda) for c in _params()[1])
+    fn = ce.make_batched_rollout_cuda(p, cfg, lag, 0.02, "rk4")
+    buf = torch.zeros(3 * 5 * 8 + 1, device=cuda)
+    U = buf[1:].view(3, 5, 8)             # contiguous, 4 bytes off a 16-byte boundary
+    before = _build.launches["batched_rollout"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(torch.zeros(5, 12, device=cuda), U)
+    assert _build.launches["batched_rollout"] == before

@@ -87,6 +87,25 @@ def test_rows_plain_with_ocean_current_matches_pallas_interpret(method, rng):
     assert np.abs(still.numpy() - got.numpy()).max() > 1e-3
 
 
+# the edges K1 masks: T below and across a few steps, B across the block
+EDGE_T, EDGE_B = (1, 3, 7), (1, 65, 130)
+
+
+@pytest.mark.parametrize("method,use_lag", [("euler", True), ("rk4", True), ("euler", False),
+                                            ("rk4", False)])
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("T", EDGE_T)
+def test_rows_plain_matches_pallas_at_edge_shapes(T, B, method, use_lag, rng):
+    (jp, jcfg, jlag), (tp, tcfg, tlag) = _models()
+    x0, U = _inputs(rng, B, T)
+    want = jpr.rollout_final_pallas(jp, jcfg, jlag, jnp.asarray(x0), jnp.asarray(U), 0.02,
+                                    method=method, interpret=True, use_lag=use_lag)
+    got = cr.rollout_final_plain(tp, tcfg, tlag, torch.from_numpy(x0), torch.from_numpy(U),
+                                 0.02, method, use_lag=use_lag)
+    assert got.shape == (B, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
 def test_cpu_tensors_take_the_plain_version(rng):
     _, (tp, tcfg, tlag) = _models()
     x0, U = (torch.from_numpy(a) for a in _inputs(rng, 5, 12))
@@ -137,4 +156,19 @@ def test_kernel_matches_plain_on_card(method, cuda, rng):
     assert _build.launches["rollout_final"] == before + 1
     want = cr.rollout_final_plain(p, cfg, lag, x0, U, 0.02, method)
     # FMA contraction in the kernel is the only difference
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("T", EDGE_T)
+def test_kernel_at_edge_shapes_on_card(T, B, cuda, rng):
+    p, cfg, lag = (c.to(cuda) for c in _models()[1])
+    x0, U = (torch.from_numpy(a).to(cuda) for a in _inputs(rng, B, T))
+    tau = cr.shared_tau_sequence(cfg, lag, U)
+    before = _build.launches["rollout_final"]
+    got = cr.launch_rollout(cr.row_consts(p, 0.02), tau, x0, "rk4")
+    torch.cuda.synchronize()
+    assert _build.launches["rollout_final"] == before + 1
+    want = cr.rollout_rows_plain(p, tau, x0, 0.02, "rk4")
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)

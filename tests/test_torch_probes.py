@@ -254,6 +254,61 @@ def test_parse_sass_counts_the_outer_loop():
     assert sin["total"]["BRA"] == 2
 
 
+STEP_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_114rollout_kernelILi1EEEv9RowConstsPKfS3_Pfii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDS.64 R2, [R4] ;
+        /*0030*/                   FMUL R0, R5, 0.63661974668502807617 ;
+        /*0040*/                   FSETP.GE.AND P0, PT, |R5|, 105615, PT ;
+        /*0050*/                   FFMA R6, R0, R7, R8 ;
+        /*0060*/               @!P0 BRA 0xb0 ;
+        /*0070*/                   LDG.E.CONSTANT R9, desc[UR6][R10.64] ;
+        /*0080*/                   STL [R1], R9 ;
+        /*0090*/                @P1 BRA 0x70 ;
+        /*00a0*/                   DMUL R2, R2, UR4 ;
+        /*00b0*/                   FFMA R6, R6, R7, R8 ;
+        /*00c0*/               @!P2 BRA 0xf0 ;
+        /*00d0*/                   CALL.REL.NOINC 0x200 ;
+        /*00e0*/                   MOV R3, R4 ;
+        /*00f0*/                   FFMA R6, R6, R2, R8 ;
+        /*0100*/                @P3 BRA 0x20 ;
+        /*0110*/                @P4 BRA 0x10 ;
+        /*0120*/                   EXIT ;
+"""
+
+
+def test_step_loop_counts_the_common_path():
+    """The step loop is the smallest loop with 90% of the FFMA (not the
+    chunk loop around it), and its common path leaves out the regions a
+    thread jumps over that hold a loop or a call."""
+    got = cp.step_loop(STEP_SASS, "14rollout_kernelILi1E")
+    assert got["window"] == (0x20, 0x100)
+    assert got["static"]["FFMA"] == 3 and got["static"]["DMUL"] == 1
+    assert got["fast"] == {"LDS": 1, "FMUL": 1, "FSETP": 1, "FFMA": 3, "BRA": 3}
+    assert cp.parse_sass(STEP_SASS)["_ZN12_GLOBAL__N_114rollout_kernelILi1EEEv9RowConstsPKfS3_Pfii"][
+        "loop"]["BAR"] == 1          # parse_sass's outermost loop is the chunk loop
+    with pytest.raises(ValueError, match="0 functions"):
+        cp.step_loop(STEP_SASS, "window_eval_kernel")
+
+
+def test_ptxas_resources_reads_each_function():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN1a14rollout_kernelILi1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a14rollout_kernelILi1EEEv
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN1a7probe' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a7probe
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers
+"""
+    got = _build.ptxas_resources(log)
+    assert got["_ZN1a14rollout_kernelILi1EEEv"] == dict(regs=72, stack=32, spill_stores=0,
+                                                       spill_loads=0)
+    assert got["_ZN1a7probe"] == dict(regs=255, stack=0, spill_stores=8, spill_loads=4)
+
+
 # --- on the card ------------------------------------------------------------------
 
 @pytest.fixture
