@@ -18,7 +18,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
     lag_params,
     thruster_config,
 )
-from bluerov2_dynamics_tpu_torch.ops.cuda_eval import make_endpoint_final_cuda
+from bluerov2_dynamics_tpu_torch.ops.cuda_eval import make_endpoint_sq_cuda
 
 
 def fossen_evaluator(dt, X_test, U_test, method="euler", p=None, cfg=None,
@@ -26,8 +26,9 @@ def fossen_evaluator(dt, X_test, U_test, method="euler", p=None, cfg=None,
     """``fn(H) -> endpoint RMSE`` of the full thruster-input physics model.
 
     ``X_test (N, 12)`` and ``U_test (N, 8)`` move to ``device`` as float32
-    (``None`` means ``cuda``).  On CUDA the sliding-window kernel runs; on
-    the CPU the batched step loop does.  ``p``/``cfg`` default to the
+    (``None`` means ``cuda``).  On CUDA the fused sliding-window kernel
+    (K2, one launch that returns the summed squared error) runs; on the
+    CPU the batched step loop does.  ``p``/``cfg`` default to the
     nominal Table A1 set; fitted values go through the same path, since
     the kernel takes its coefficients at launch.
     """
@@ -40,7 +41,7 @@ def fossen_evaluator(dt, X_test, U_test, method="euler", p=None, cfg=None,
     step = fossen.make_thruster_step(p, cfg, lag, dt, method=method)
     return common.endpoint_evaluator_with_kernel(
         X_test, U_test,
-        build_kernel=lambda H: make_endpoint_final_cuda(p, cfg, lag, dt, H, method=method),
+        build_kernel=lambda H: make_endpoint_sq_cuda(p, cfg, lag, dt, H, method=method),
         scan_eval=lambda H: metrics.endpoint_rmse_carry(
             step,
             lambda x: torch.zeros((*x.shape[:-1], 8, 3), dtype=x.dtype, device=x.device),

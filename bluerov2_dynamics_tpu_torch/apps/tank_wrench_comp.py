@@ -19,7 +19,7 @@ from bluerov2_dynamics_tpu_torch.device import resolve_device
 from bluerov2_dynamics_tpu_torch.eval import metrics
 from bluerov2_dynamics_tpu_torch.models import fossen
 from bluerov2_dynamics_tpu_torch.models.params import fossen_params
-from bluerov2_dynamics_tpu_torch.ops.cuda_eval import make_endpoint_final_cuda_wrench
+from bluerov2_dynamics_tpu_torch.ops.cuda_eval import make_endpoint_sq_cuda_wrench
 
 
 def wrench_dataset(X, U):
@@ -32,9 +32,9 @@ def fossen_wrench_evaluator(dt, X_test, TAU_test, method="euler", p=None, device
     """``fn(H) -> endpoint RMSE`` of the wrench-input euler12 Fossen model.
 
     ``X_test (N, 12)`` and ``TAU_test (N, 6)`` move to ``device`` as
-    float32 (``None`` means ``cuda``).  On CUDA the sliding-window kernel
-    (K4) runs; on the CPU the batched step loop does.  ``p`` defaults to
-    the nominal Table A1 set.
+    float32 (``None`` means ``cuda``).  On CUDA the fused sliding-window
+    kernel (K4, one launch) runs; on the CPU the batched step loop does.
+    ``p`` defaults to the nominal Table A1 set.
     """
     device = resolve_device(device)
     X_test = torch.as_tensor(X_test, dtype=torch.float32, device=device).contiguous()
@@ -43,6 +43,6 @@ def fossen_wrench_evaluator(dt, X_test, TAU_test, method="euler", p=None, device
     step = fossen.make_wrench_step(p, dt, method=method, state="euler12")
     return common.endpoint_evaluator_with_kernel(
         X_test, TAU_test,
-        build_kernel=lambda H: make_endpoint_final_cuda_wrench(p, dt, H, method=method),
+        build_kernel=lambda H: make_endpoint_sq_cuda_wrench(p, dt, H, method=method),
         scan_eval=lambda H: metrics.endpoint_rmse(step, X_test, TAU_test, H),
     )

@@ -21,7 +21,7 @@ from bluerov2_dynamics_tpu_torch.device import resolve_device
 from bluerov2_dynamics_tpu_torch.eval import metrics
 from bluerov2_dynamics_tpu_torch.models import fossen
 from bluerov2_dynamics_tpu_torch.models.params import fossen_params
-from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_final_cuda_quat
+from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_sq_cuda_quat
 
 
 def quat_dataset(X, U):
@@ -39,8 +39,8 @@ def fossen_quat_evaluator(dt, X_test, TAU_test, method="euler", p=None, device=N
     renormalised after every step.
 
     ``X_test (N, 13)`` and ``TAU_test (N, 6)`` move to ``device`` as
-    float32 (``None`` means ``cuda``).  On CUDA the sliding-window kernel
-    (K5) runs; on the CPU the batched step loop does.
+    float32 (``None`` means ``cuda``).  On CUDA the fused sliding-window
+    kernel (K5, one launch) runs; on the CPU the batched step loop does.
     """
     device = resolve_device(device)
     X_test = torch.as_tensor(X_test, dtype=torch.float32, device=device).contiguous()
@@ -49,6 +49,6 @@ def fossen_quat_evaluator(dt, X_test, TAU_test, method="euler", p=None, device=N
     step = fossen.make_wrench_step(p, dt, method=method, state="quat13")
     return common.endpoint_evaluator_with_kernel(
         X_test, TAU_test,
-        build_kernel=lambda H: make_endpoint_final_cuda_quat(p, dt, H, method=method),
+        build_kernel=lambda H: make_endpoint_sq_cuda_quat(p, dt, H, method=method),
         scan_eval=lambda H: metrics.endpoint_rmse(step, X_test, TAU_test, H),
     )

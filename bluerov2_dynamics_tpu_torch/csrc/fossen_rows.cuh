@@ -1,7 +1,8 @@
 // Shared device code of the port's physics kernels: the closed-form
 // hydrodynamics shared by both state conventions, the euler12 and quat13
-// RHSs, one Euler or RK4 step (with the quat13 renormalisation), and the
-// thruster actuation (T200 curve, third-order ZOH lag, wrench map).
+// RHSs, one Euler or RK4 step (with the quat13 renormalisation), the
+// thruster actuation (T200 curve, third-order ZOH lag, wrench map), and the
+// window kernels' fused epilogue (the grid-wide squared endpoint error).
 //
 // One copy of the arithmetic of ops/pallas_rollout.py::_make_hydro_rows /
 // _make_rhs_rows / _rk4_rows, of ops/pallas_quat.py::_normalize_q_rows /
@@ -20,6 +21,8 @@
 // rsqrtf in the quaternion normalise (not correctly rounded; the plain
 // version uses torch.rsqrt).
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -251,5 +254,95 @@ __device__ __forceinline__ void wrench_rows(const ThrusterConsts& c, const float
       if (wji != 0.0f) acc = acc + wji * F[j];
     }
     tau[i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused epilogue of the window kernels (K2, K4, K5 and, per rank, K7):
+// the sum over starts of the squared endpoint error |x_H(s) - X[s + H]|^2.
+
+#define BROV2_FULL_MASK 0xffffffffu
+
+// Scratch from the wrapper: one float32 partial a block, a ticket that is
+// zero before and after every launch, and the result.
+struct SqScratch {
+  float* out;          // the sum, one float32
+  float* partials;     // gridDim.x floats
+  unsigned* ticket;    // zero between launches
+};
+
+// Start s's squared endpoint error: the N-state x against the target row
+// X[s + H]; zero on a thread that shadows a start past the end.
+template <int N>
+__device__ __forceinline__ float endpoint_sq(const float* x, const float* __restrict__ X,
+                                             int s, int H, bool live) {
+  const float* target = X + (int64_t)(s + H) * N;
+  float e = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float d = x[i] - target[i];
+    e = e + d * d;
+  }
+  return live ? e : 0.0f;
+}
+
+// The endpoint x of start s into row s of out.
+template <int N>
+__device__ __forceinline__ void write_endpoint(const float* x, float* __restrict__ out, int s) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[(int64_t)s * N + i] = x[i];
+}
+
+// Sum of one float a thread over the whole grid, into *sq.out.  Every
+// thread of every block must call it.  Warp shuffles and then shared memory
+// reduce a block to one float32 partial; each block stores its partial,
+// fences, and takes a ticket by atomicInc with the limit gridDim.x - 1, so
+// the last block to arrive sees gridDim.x - 1 and its increment leaves the
+// ticket at zero for the next launch.  That block adds all the partials in
+// float64 and writes the float32 result.
+//
+// Accuracy: the terms are non-negative, so each float32 sum errs by at most
+// its number of additions times 2^-24 relative: a start's share (<= 13
+// terms), 5 shuffle levels, <= 31 warp partials in turn; with float64
+// across the blocks and one final rounding, the result is within
+// (13 + 5 + 31 + 1) * 6e-8 = 3e-6 relative of the exact sum of the
+// float32 squares, under the 1e-5 the callers are held to.  (A float32 sum
+// of ~700 block partials in turn could drift by ~4e-5.)
+// Determinism: every level adds in a fixed order, the last block reads the
+// partials in the same order whichever block it is, and no float value
+// goes through an atomic: the same inputs give the same bits.
+template <int BLOCK>
+__device__ __forceinline__ void grid_sum(float v, const SqScratch& sq) {
+  static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "whole warps");
+  constexpr int WARPS = BLOCK / 32;
+  __shared__ float warp_f[WARPS];
+  __shared__ double warp_d[WARPS];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(BROV2_FULL_MASK, v, o);
+  if (lane == 0) warp_f[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float b = warp_f[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) b += warp_f[w];
+    sq.partials[blockIdx.x] = b;
+    __threadfence();
+    last = atomicInc(sq.ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  double d = 0.0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += BLOCK) d += (double)__ldcg(sq.partials + i);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) d += __shfl_down_sync(BROV2_FULL_MASK, d, o);
+  if (lane == 0) warp_d[warp] = d;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double total = warp_d[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) total += warp_d[w];
+    *sq.out = (float)total;
   }
 }

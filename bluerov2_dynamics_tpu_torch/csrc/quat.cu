@@ -1,6 +1,8 @@
 // K5: sliding-window endpoint evaluator of the quat13 wrench-input model.
 // For every start s < N - H: H steps from X[s] under the body wrench
-// TAU[s + t]; writes the (N - H, 13) endpoint states.
+// TAU[s + t]; writes the (N - H, 13) endpoint states or, fused, the one
+// float32 sum over starts of |x_H(s) - X[s + H]|^2 (fossen_rows.cuh
+// grid_sum; the per-rank body of K7 and the T4 app's RMSE).
 //
 // K6: quat13 rollout of B starts for T steps under ONE shared wrench
 // sequence TAU (T, 6); writes the (B, 13) final states.
@@ -22,8 +24,9 @@
 // states in registers for all steps.  K5 reads its 52-byte state rows
 // element by element and TAU[s + t] as three float2 (neighbouring starts
 // read neighbouring rows, reused from L1/L2 by the H starts that need
-// them).  K6 stages the shared TAU through shared memory in chunks, where
-// every thread of the block reads the same word (a broadcast).
+// them); the fused form reduces the squared errors in the kernel.  K6
+// stages the shared TAU through shared memory in chunks, where every
+// thread of the block reads the same word (a broadcast).
 #include <cstdint>
 
 #include "fossen_rows.cuh"
@@ -34,12 +37,15 @@ constexpr int kWindowThreads = 64;
 constexpr int kRollThreads = 128;
 constexpr int kTauChunk = 256;  // steps of TAU staged per pass (6 KB)
 
-template <int METHOD, bool RENORM>
+template <int METHOD, bool RENORM, bool SQ>
 __global__ void window_eval_quat_kernel(RowConsts k, const float* __restrict__ X,
                                         const float* __restrict__ TAU,
-                                        float* __restrict__ out, int n_start, int H) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_start) return;
+                                        float* __restrict__ out, int n_start, int H,
+                                        SqScratch sq) {
+  const int own = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = own < n_start;
+  if (!SQ && !live) return;
+  const int s = live ? own : n_start - 1;   // fused: a dead thread shadows the last start
   float x[13];
 #pragma unroll
   for (int i = 0; i < 13; ++i) x[i] = X[(int64_t)s * 13 + i];
@@ -50,8 +56,8 @@ __global__ void window_eval_quat_kernel(RowConsts k, const float* __restrict__ X
     const float tau[6] = {a.x, a.y, b.x, b.y, d.x, d.y};
     step_quat_rows<METHOD, RENORM>(k, x, tau);
   }
-#pragma unroll
-  for (int i = 0; i < 13; ++i) out[(int64_t)s * 13 + i] = x[i];
+  if constexpr (SQ) grid_sum<kWindowThreads>(endpoint_sq<13>(x, X, s, H, live), sq);
+  else write_endpoint<13>(x, out, s);
 }
 
 template <int METHOD, bool RENORM>
@@ -80,11 +86,25 @@ __global__ void rollout_quat_kernel(RowConsts k, const float* __restrict__ TAU,
   }
 }
 
-template <int METHOD, bool RENORM>
+template <int METHOD, bool RENORM, bool SQ>
 void launch_window(const RowConsts& k, const float* X, const float* TAU, float* out,
-                   int n_start, int H, cudaStream_t s) {
+                   SqScratch sq, int n_start, int H, cudaStream_t s) {
   const dim3 grid((n_start + kWindowThreads - 1) / kWindowThreads);
-  window_eval_quat_kernel<METHOD, RENORM><<<grid, kWindowThreads, 0, s>>>(k, X, TAU, out, n_start, H);
+  window_eval_quat_kernel<METHOD, RENORM, SQ><<<grid, kWindowThreads, 0, s>>>(k, X, TAU, out,
+                                                                             n_start, H, sq);
+}
+
+template <bool SQ>
+void launch_window_any(const RowConsts& k, const float* X, const float* TAU, float* out,
+                       SqScratch sq, int n_start, int H, int method, int renormalize,
+                       cudaStream_t s) {
+  if (method == 0) {
+    if (renormalize) launch_window<0, true, SQ>(k, X, TAU, out, sq, n_start, H, s);
+    else launch_window<0, false, SQ>(k, X, TAU, out, sq, n_start, H, s);
+  } else {
+    if (renormalize) launch_window<1, true, SQ>(k, X, TAU, out, sq, n_start, H, s);
+    else launch_window<1, false, SQ>(k, X, TAU, out, sq, n_start, H, s);
+  }
 }
 
 template <int METHOD, bool RENORM>
@@ -102,15 +122,22 @@ extern "C" {
 int brov2_window_eval_quat(const void* row_consts, const float* X, const float* TAU,
                            float* out, int n_start, int H, int method, int renormalize,
                            void* stream) {
-  const RowConsts k = *static_cast<const RowConsts*>(row_consts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (method == 0) {
-    if (renormalize) launch_window<0, true>(k, X, TAU, out, n_start, H, s);
-    else launch_window<0, false>(k, X, TAU, out, n_start, H, s);
-  } else {
-    if (renormalize) launch_window<1, true>(k, X, TAU, out, n_start, H, s);
-    else launch_window<1, false>(k, X, TAU, out, n_start, H, s);
-  }
+  launch_window_any<false>(*static_cast<const RowConsts*>(row_consts), X, TAU, out,
+                           SqScratch{nullptr, nullptr, nullptr}, n_start, H, method, renormalize,
+                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 fused: the sum of the squared endpoint errors into *sq.  `partials`
+// holds n_partials floats (at least the grid); `ticket` is zero.
+int brov2_window_sq_quat(const void* row_consts, const float* X, const float* TAU, float* sq,
+                         float* partials, int n_partials, unsigned* ticket, int n_start, int H,
+                         int method, int renormalize, void* stream) {
+  if ((n_start + kWindowThreads - 1) / kWindowThreads > n_partials)
+    return static_cast<int>(cudaErrorInvalidValue);
+  launch_window_any<true>(*static_cast<const RowConsts*>(row_consts), X, TAU, nullptr,
+                          SqScratch{sq, partials, ticket}, n_start, H, method, renormalize,
+                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

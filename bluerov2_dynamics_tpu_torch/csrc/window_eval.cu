@@ -2,42 +2,53 @@
 // model.  For every start s < N - H: H steps from X[s] under the commands
 // U[s + t], each step being curve -> lag (fresh at every start) -> wrench
 // map -> one Euler/RK4 step with tau held across its stages.  Writes the
-// (N - H, 12) endpoint states.
+// (N - H, 12) endpoint states or, fused, the one float32 sum over starts
+// of |x_H(s) - X[s + H]|^2 (the per-rank body of K7 and the apps' RMSE).
 //
 // K4: sliding-window endpoints of the wrench-input euler12 model: H steps
-// from X[s] under the body wrench TAU[s + t]; no curve and no lag.
+// from X[s] under the body wrench TAU[s + t]; no curve and no lag.  The
+// same two outputs.
 //
 // Replace, in the JAX package, ops/pallas_eval.py::
 // _make_thruster_window_kernel (K2, through window_pallas_call /
 // make_endpoint_final_pallas) and _make_wrench_window_kernel (K4, through
-// make_endpoint_final_pallas_wrench).  K3, the per-trajectory rollout, is
-// in batched_rollout.cu.
+// make_endpoint_final_pallas_wrench), and with the fused sum the kernel,
+// jnp.sum(d * d) and psum body of parallel/sharded.py::_shardmap_window_rmse
+// (K7).  K3, the per-trajectory rollout, is in batched_rollout.cu.
 //
 // What bounds them on an H100: their work is operations (per start and
 // Euler step ~156 flops, 2 divisions and 3 sincosf of the row step, plus
-// ~300 flops of actuation in K2), but at the apps' shapes (9,065 starts,
-// H=100) K2 and K4 fill fewer than one wave of 132 SMs and each thread
-// runs 100 dependent steps, so the dependency chain of one thread
-// (latency) sets their time.
+// ~300 flops of actuation in K2), but at the apps' shape (9,065 starts,
+// H=100) one thread a start fills fewer than one warp a scheduler, and a
+// lone warp issues every instruction of its 100 dependent steps in turn.
 // The design: one thread per start, 12 states (and 24 lag states) in
 // registers for all steps, inputs read directly (no pre-shifted copy):
 // the rows of neighbouring starts are neighbouring, so a warp's reads
 // coalesce; every row is reused from L1/L2 by the H starts that need it.
+// A start split over 2, 4 or 8 lanes of a warp (each lane a share of the
+// thrusters and of the three sincosf, shuffles handing them round) issued
+// more work than it hid and measured slower at 9,065 and 44,800 starts
+// (PERF.md, PR 5), so one thread runs one start.
 #include <cstdint>
 
 #include "fossen_rows.cuh"
 
 namespace {
 
+// Threads a block of K2 and K4, mirrored by ops/cuda_eval.py::window_plan.
 constexpr int kThreads = 64;
 
-// K2: input row s + t of U (N, 8).
-template <int METHOD, bool USE_LAG>
+// K2.  The fused form's threads past the end shadow the last start, so
+// that every thread reaches the block sum, and add nothing; the endpoint
+// form's return.
+template <int METHOD, bool USE_LAG, bool SQ>
 __global__ void window_eval_kernel(RowConsts k, ThrusterConsts c,
                                    const float* __restrict__ X, const float* __restrict__ U,
-                                   float* __restrict__ out, int n_start, int H) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_start) return;
+                                   float* __restrict__ out, int n_start, int H, SqScratch sq) {
+  const int own = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = own < n_start;
+  if (!SQ && !live) return;
+  const int s = live ? own : n_start - 1;
   float x[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) x[i] = X[(int64_t)s * 12 + i];
@@ -59,16 +70,20 @@ __global__ void window_eval_kernel(RowConsts k, ThrusterConsts c,
     wrench_rows(c, F, tau);
     step_rows<METHOD>(k, x, tau);
   }
-#pragma unroll
-  for (int i = 0; i < 12; ++i) out[(int64_t)s * 12 + i] = x[i];
+  if constexpr (SQ) grid_sum<kThreads>(endpoint_sq<12>(x, X, s, H, live), sq);
+  else write_endpoint<12>(x, out, s);
 }
 
-template <int METHOD>
+// K4, with the same two epilogues.
+template <int METHOD, bool SQ>
 __global__ void window_eval_wrench_kernel(RowConsts k, const float* __restrict__ X,
                                           const float* __restrict__ TAU,
-                                          float* __restrict__ out, int n_start, int H) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_start) return;
+                                          float* __restrict__ out, int n_start, int H,
+                                          SqScratch sq) {
+  const int own = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = own < n_start;
+  if (!SQ && !live) return;
+  const int s = live ? own : n_start - 1;
   float x[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) x[i] = X[(int64_t)s * 12 + i];
@@ -79,21 +94,47 @@ __global__ void window_eval_wrench_kernel(RowConsts k, const float* __restrict__
     const float tau[6] = {a.x, a.y, b.x, b.y, d.x, d.y};
     step_rows<METHOD>(k, x, tau);
   }
-#pragma unroll
-  for (int i = 0; i < 12; ++i) out[(int64_t)s * 12 + i] = x[i];
+  if constexpr (SQ) grid_sum<kThreads>(endpoint_sq<12>(x, X, s, H, live), sq);
+  else write_endpoint<12>(x, out, s);
 }
 
-void launch_thruster(const RowConsts& k, const ThrusterConsts& c, const float* X,
-                     const float* U, float* out, int n_start, int H, int method,
-                     int use_lag, cudaStream_t s) {
-  const dim3 grid((n_start + kThreads - 1) / kThreads);
-  if (method == 0) {
-    if (use_lag) window_eval_kernel<0, true><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
-    else window_eval_kernel<0, false><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
-  } else {
-    if (use_lag) window_eval_kernel<1, true><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
-    else window_eval_kernel<1, false><<<grid, kThreads, 0, s>>>(k, c, X, U, out, n_start, H);
-  }
+int grid_of(int n_start) { return (n_start + kThreads - 1) / kThreads; }
+
+using ThrusterKernel = void (*)(RowConsts, ThrusterConsts, const float*, const float*, float*,
+                                int, int, SqScratch);
+
+ThrusterKernel pick(int method, int use_lag, bool sq) {
+  static const ThrusterKernel table[2][2][2] = {
+      {{window_eval_kernel<0, false, false>, window_eval_kernel<0, false, true>},
+       {window_eval_kernel<0, true, false>, window_eval_kernel<0, true, true>}},
+      {{window_eval_kernel<1, false, false>, window_eval_kernel<1, false, true>},
+       {window_eval_kernel<1, true, false>, window_eval_kernel<1, true, true>}}};
+  return table[method != 0][use_lag != 0][sq];
+}
+
+// `sq` null: the endpoint form into `out`; else the fused form into `*sq`.
+int launch_thruster(const void* row_consts, const void* thr_consts, const float* X,
+                    const float* U, float* out, int n_start, int H, int method, int use_lag,
+                    const SqScratch* sq, void* stream) {
+  pick(method, use_lag, sq != nullptr)<<<grid_of(n_start), kThreads, 0,
+                                             static_cast<cudaStream_t>(stream)>>>(
+      *static_cast<const RowConsts*>(row_consts), *static_cast<const ThrusterConsts*>(thr_consts),
+      X, U, out, n_start, H, sq ? *sq : SqScratch{nullptr, nullptr, nullptr});
+  return static_cast<int>(cudaGetLastError());
+}
+
+using WrenchKernel = void (*)(RowConsts, const float*, const float*, float*, int, int, SqScratch);
+
+int launch_wrench(const void* row_consts, const float* X, const float* TAU, float* out,
+                  int n_start, int H, int method, const SqScratch* sq, void* stream) {
+  static const WrenchKernel table[2][2] = {
+      {window_eval_wrench_kernel<0, false>, window_eval_wrench_kernel<0, true>},
+      {window_eval_wrench_kernel<1, false>, window_eval_wrench_kernel<1, true>}};
+  table[method != 0][sq != nullptr]<<<grid_of(n_start), kThreads, 0,
+                                          static_cast<cudaStream_t>(stream)>>>(
+      *static_cast<const RowConsts*>(row_consts), X, TAU, out, n_start, H,
+      sq ? *sq : SqScratch{nullptr, nullptr, nullptr});
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -104,21 +145,43 @@ extern "C" {
 int brov2_window_eval(const void* row_consts, const void* thr_consts, const float* X,
                       const float* U, float* out, int n_start, int H, int method,
                       int use_lag, void* stream) {
-  launch_thruster(*static_cast<const RowConsts*>(row_consts),
-                  *static_cast<const ThrusterConsts*>(thr_consts), X, U, out, n_start, H, method,
-                  use_lag, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_thruster(row_consts, thr_consts, X, U, out, n_start, H, method, use_lag, nullptr,
+                         stream);
+}
+
+// K2 fused: the sum of the squared endpoint errors into *sq.  `partials`
+// holds n_partials floats (at least the grid); `ticket` is zero.
+int brov2_window_sq(const void* row_consts, const void* thr_consts, const float* X,
+                    const float* U, float* sq, float* partials, int n_partials,
+                    unsigned* ticket, int n_start, int H, int method, int use_lag,
+                    void* stream) {
+  if (grid_of(n_start) > n_partials) return static_cast<int>(cudaErrorInvalidValue);
+  const SqScratch scratch{sq, partials, ticket};
+  return launch_thruster(row_consts, thr_consts, X, U, nullptr, n_start, H, method, use_lag,
+                         &scratch, stream);
+}
+
+// The block size K2 launches, and the resident blocks per SM of its
+// endpoint (sq = 0) or fused kernel.
+int brov2_window_occupancy(int method, int use_lag, int sq, int* block, int* blocks_per_sm) {
+  *block = kThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, pick(method, use_lag, sq != 0), kThreads, 0));
 }
 
 // TAU must be 8-byte aligned with rows of 6 floats (the wrapper checks).
 int brov2_window_eval_wrench(const void* row_consts, const float* X, const float* TAU,
                              float* out, int n_start, int H, int method, void* stream) {
-  const RowConsts k = *static_cast<const RowConsts*>(row_consts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_start + kThreads - 1) / kThreads);
-  if (method == 0) window_eval_wrench_kernel<0><<<grid, kThreads, 0, s>>>(k, X, TAU, out, n_start, H);
-  else window_eval_wrench_kernel<1><<<grid, kThreads, 0, s>>>(k, X, TAU, out, n_start, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch_wrench(row_consts, X, TAU, out, n_start, H, method, nullptr, stream);
+}
+
+// K4 fused, as brov2_window_sq.
+int brov2_window_sq_wrench(const void* row_consts, const float* X, const float* TAU, float* sq,
+                           float* partials, int n_partials, unsigned* ticket, int n_start, int H,
+                           int method, void* stream) {
+  if (grid_of(n_start) > n_partials) return static_cast<int>(cudaErrorInvalidValue);
+  const SqScratch scratch{sq, partials, ticket};
+  return launch_wrench(row_consts, X, TAU, nullptr, n_start, H, method, &scratch, stream);
 }
 
 const char* brov2_error_string(int code) {

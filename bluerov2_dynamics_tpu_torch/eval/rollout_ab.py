@@ -1,5 +1,5 @@
-"""K1 and K3, the euler12 RK4 rollouts: this checkout's kernels beside other
-versions of the same sources, on one card, in one process.
+"""K1, K3 and K2: this checkout's kernels beside other versions of the same
+sources, on one card, in one process.
 
     python -m bluerov2_dynamics_tpu_torch.eval.rollout_ab --parent DIR
         [--variant LABEL=DIR ...] [--trig-bits] [--no-current] [--out DIR]
@@ -8,29 +8,35 @@ versions of the same sources, on one card, in one process.
 into a directory under ``build/`` with
 ``git archive <commit> bluerov2_dynamics_tpu_torch/csrc | tar -x -C build/parent``;
 ``--variant`` adds more trees (for example this checkout's ``csrc/`` with
-one kernel changed, to time one lever alone).  A tree may hold either
-kernel or both.  K1 is ``rollout.cu``; K3 is ``batched_rollout.cu``, or in
-an older tree the per-trajectory instantiation of ``window_eval.cu``.
-Each source is compiled with this checkout's nvcc flags into
-``build/ab_kernels/<label>/``, all together.  The launcher's parameters
-are read from the source, and a tree whose launcher takes other
-parameters than this checkout's is refused.  Where a source exports no
-occupancy query, a shim adds one at the block size its ``kThreads`` gives.
+one constant changed, to time one lever alone).  A tree may hold any of
+the kernels.  K1 is ``rollout.cu``; K3 is ``batched_rollout.cu``, or in an
+older tree the per-trajectory instantiation of ``window_eval.cu``; K2 is
+``window_eval.cu``'s ``brov2_window_eval``.  Each source is compiled with
+this checkout's nvcc flags into ``build/ab_kernels/<label>/``, all
+together.  The launcher's parameters are read from the source, and a tree
+whose launcher takes other parameters than this checkout's is refused.
+Where a source exports no occupancy query, a shim adds one at the block
+size its ``kThreads`` gives.
 
 For each kernel it prints ptxas's registers, stack frame and spills, the
-resident blocks per SM at the launched block size, and the opcode counts of
-the step loop from ``cuobjdump -sass`` (the listings and ``rows.json`` go to
-``--out``).  Then it times the kernels at B = 65,536 x T = 500 RK4 with
-CUDA events, in turns (the trees, current, current, the trees again) on the
-same inputs, and prints the largest difference of each output from the
-first tree's.  ``--trig-bits`` holds ``sincosf`` against ``sinf``/``cosf``
-over every float32.  Needs a card.
+resident blocks per SM at the launched block size, and the opcode counts
+of the step loop from ``cuobjdump -sass`` (the listings, gzipped, and
+``rows.json`` go to ``--out``).  Then it times the kernels with CUDA
+events, in turns (the trees, current, current, the trees again) on the
+same inputs: K1 and K3 at B = 65,536 x T = 500 RK4, K2 at 9,065 and 44,800
+starts x H = 100 Euler with the lag.  Every tree's kernels, this
+checkout's too, are launched through their C entry points with the same
+arguments, so no Python wrapper's host time falls between the timed
+launches.  It prints the largest difference of each output from the first
+tree's.  ``--trig-bits`` holds ``sincosf``
+against ``sinf``/``cosf`` over every float32.  Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import gzip
 import json
 import re
 import subprocess
@@ -42,21 +48,28 @@ import torch
 from bluerov2_dynamics_tpu_torch.ops import _build
 
 B, T, DT = 65_536, 500, 0.02
+H_WINDOW, WINDOW_STARTS = 100, (9_065, 44_800)
 AB_DIR = _build.BUILD_DIR.parent / "ab_kernels"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 # name: (this checkout's library, launcher, occupancy query, its leading int
 # arguments, candidate sources as (file, kernel instantiation, a text the
-# source must hold))
+# source must hold), shapes timed).  K2's query also takes the kernel form
+# (0: the endpoints); that instantiation is window_eval_kernel<0, true, false>.
 KERNELS = {
     "rollout_final": ("rollout", "brov2_rollout_final", "brov2_rollout_occupancy", 1,
-                      (("rollout.cu", "rollout_kernel<1>", "rollout_kernel"),)),
+                      (("rollout.cu", "rollout_kernel<1>", "rollout_kernel"),), (B,)),
     "batched_rollout": ("batched_rollout", "brov2_batched_rollout",
                         "brov2_batched_rollout_occupancy", 2,
                         (("batched_rollout.cu", "batched_rollout_kernel<1, true>",
                           "batched_rollout_kernel"),
-                         ("window_eval.cu", "window_eval_kernel<1, true, true>", "PER_TRAJ"))),
+                         ("window_eval.cu", "window_eval_kernel<1, true, true>", "PER_TRAJ")),
+                        (B,)),
+    "window_eval": ("window_eval", "brov2_window_eval", "brov2_window_occupancy", 2,
+                    (("window_eval.cu", "window_eval_kernel<0, true, false>", "PER_TRAJ"),
+                     ("window_eval.cu", "window_eval_kernel<0, true>", "brov2_window_eval")),
+                    WINDOW_STARTS),
 }
 _SHIM = """#include "{src}"
 extern "C" int brov2_ab_occupancy(int* block, int* blocks_per_sm) {{
@@ -102,21 +115,20 @@ extern "C" const char* brov2_error_string(int code) {
 def tree_plan(csrc: Path) -> dict:
     """``{name: (source, kernel, shim block or None)}`` for the kernels the
     tree ``csrc`` holds.  Raises ``ValueError`` on a source whose launcher
-    takes other parameters than this checkout's, or that neither exports
-    an occupancy query nor states its block size as ``kThreads``."""
+    or occupancy query takes other parameters than this checkout's, or that
+    neither exports an occupancy query nor states its block size as
+    ``kThreads``."""
     plan = {}
-    for name, (lib, launcher, occupancy, _, candidates) in KERNELS.items():
-        want = len(_build._SIGNATURES[lib][launcher][0])
+    for name, (lib, launcher, occupancy, _, candidates, _) in KERNELS.items():
         for fname, kernel, marker in candidates:
             src = csrc / fname
             text = src.read_text() if src.exists() else ""
-            m = re.search(rf"\b{launcher}\(([^)]*)\)", text)
-            if m is None or marker not in text:
+            if _n_params(text, launcher) is None or marker not in text:
                 continue
-            n = len([a for a in m.group(1).split(",") if a.strip()])
-            if n != want:
-                raise ValueError(f"{src}: {launcher} takes {n} parameters, this checkout's "
-                                 f"{want}")
+            for fn in (launcher, occupancy):
+                n, want = _n_params(text, fn), len(_build._SIGNATURES[lib][fn][0])
+                if n is not None and n != want:
+                    raise ValueError(f"{src}: {fn} takes {n} parameters, this checkout's {want}")
             block = None
             if f"{occupancy}(" not in text:
                 k = re.search(r"constexpr int kThreads = (\d+);", text)
@@ -126,14 +138,22 @@ def tree_plan(csrc: Path) -> dict:
             plan[name] = (src, kernel, block)
             break
     if not plan:
-        raise ValueError(f"{csrc}: holds neither kernel")
+        raise ValueError(f"{csrc}: holds none of the kernels")
     return plan
+
+
+def _n_params(text: str, fn: str):
+    """The number of parameters of the first definition of ``fn`` in
+    ``text``, or None where it has none."""
+    m = re.search(rf"\b{fn}\(([^)]*)\)", text)
+    return None if m is None else len([a for a in m.group(1).split(",") if a.strip()])
 
 
 def build_trees(trees: dict) -> dict:
     """Compile every kernel source of ``trees`` (``{label: csrc}``), one
     ``nvcc`` each, all together; ``{label: {name: (library, ptxas log,
-    path, kernel, occupancy function)}}``."""
+    path, occupancy)}}``, where ``occupancy()`` gives ``(kernel
+    instantiation, block, resident blocks per SM)``."""
     procs = []
     for label, csrc in trees.items():
         into = AB_DIR / label
@@ -152,24 +172,56 @@ def build_trees(trees: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {label}'s {name}:\n{log}")
         so = ctypes.CDLL(str(out))
-        lib, launcher, occupancy, n_int, _ = KERNELS[name]
+        lib, launcher, occupancy, n_int, _, _ = KERNELS[name]
         getattr(so, launcher).argtypes, getattr(so, launcher).restype = \
             _build._SIGNATURES[lib][launcher]
         so.brov2_error_string.argtypes, so.brov2_error_string.restype = [_I], ctypes.c_char_p
-        # the occupancy query: the source's own (method, [use_lag,] ...) or the shim's
-        occ, lead = (getattr(so, occupancy), [1] * n_int) if block is None else \
-            (so.brov2_ab_occupancy, [])
-        occ.argtypes, occ.restype = [_I] * len(lead) + [_P, _P], _I
-        built[label][name] = (so, log, out, kernel, lambda b, n, occ=occ, lead=lead: occ(
-            *lead, ctypes.byref(b), ctypes.byref(n)))
+        if block is not None:
+            query = _shim_query(so, kernel)
+        elif name == "window_eval":
+            query = _window_query(so)
+        else:
+            query = _lead_query(so, occupancy, n_int, kernel)
+        built[label][name] = (so, log, out, query)
     return built
 
 
-def occupancy(so, query) -> tuple:
-    """``(block, resident blocks per SM)`` of a built kernel (RK4, lag)."""
-    b, n = _I(), _I()
-    _build.check(so, query(b, n), "occupancy")
-    return b.value, n.value
+def _check(so, code: int) -> None:
+    _build.check(so, code, "occupancy")
+
+
+def _shim_query(so, kernel: str):
+    so.brov2_ab_occupancy.argtypes, so.brov2_ab_occupancy.restype = [_P, _P], _I
+
+    def query():
+        b, per_sm = _I(), _I()
+        _check(so, so.brov2_ab_occupancy(ctypes.byref(b), ctypes.byref(per_sm)))
+        return kernel, b.value, per_sm.value
+    return query
+
+
+def _lead_query(so, occupancy: str, n_int: int, kernel: str):
+    """The source's own query: (method = RK4, [use_lag = 1,] block*, n*)."""
+    fn = getattr(so, occupancy)
+    fn.argtypes, fn.restype = [_I] * n_int + [_P, _P], _I
+
+    def query():
+        b, per_sm = _I(), _I()
+        _check(so, fn(*[1] * n_int, ctypes.byref(b), ctypes.byref(per_sm)))
+        return kernel, b.value, per_sm.value
+    return query
+
+
+def _window_query(so):
+    """K2's query, Euler with the lag, the endpoint form."""
+    fn = so.brov2_window_occupancy
+    fn.argtypes, fn.restype = _build._SIGNATURES["window_eval"]["brov2_window_occupancy"]
+
+    def query():
+        b, per_sm = _I(), _I()
+        _check(so, fn(0, 1, 0, ctypes.byref(b), ctypes.byref(per_sm)))
+        return "window_eval_kernel<0, true, false>", b.value, per_sm.value
+    return query
 
 
 def trig_bits() -> dict:
@@ -196,15 +248,15 @@ def trig_bits() -> dict:
 
 def _key(kernel: str) -> str:
     """The mangled-name part of ``rollout_kernel<1>`` or
-    ``window_eval_kernel<1, true, true>``."""
+    ``window_eval_kernel<0, true, 4, false>``."""
     base, _, args = kernel.partition("<")
     parts = [a.strip() for a in args.rstrip(">").split(",") if a.strip()]
     enc = "".join("Lb1E" if a == "true" else "Lb0E" if a == "false" else f"Li{a}E" for a in parts)
     return f"{len(base)}{base}I{enc}E"
 
 
-def report(label: str, kernel: str, log: str, sass: str | None, block: int, blocks_per_sm: int,
-           out_dir: Path) -> dict:
+def report(label: str, kernel: str, log: str, sass: str | None, block: int,
+           blocks_per_sm: int) -> dict:
     from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
 
     key = _key(kernel)
@@ -212,7 +264,6 @@ def report(label: str, kernel: str, log: str, sass: str | None, block: int, bloc
     row = dict(kernel=kernel, block=block, blocks_per_sm=blocks_per_sm,
                resources=res[0] if res else None)
     if sass is not None:
-        (out_dir / f"{label}.sass").write_text(sass)
         loop = cp.step_loop(sass, key)
         row.update(step_loop_static=sum(loop["static"].values()),
                    step_loop_fast=dict(sorted(loop["fast"].items(), key=lambda kv: -kv[1])),
@@ -222,11 +273,15 @@ def report(label: str, kernel: str, log: str, sass: str | None, block: int, bloc
 
 
 def inputs(dev):
+    """K1/K3's ``x0``, ``U`` and ``Ub``; K2's ``{n_start: (X, U)}``."""
     g = torch.Generator(device=dev).manual_seed(0)
     x0 = 0.1 * torch.randn((B, 12), generator=g, device=dev)
     U = torch.clamp(0.5 * torch.randn((T, 8), generator=g, device=dev), -1, 1)
     Ub = torch.clamp(0.5 * torch.randn((T, B, 8), generator=g, device=dev), -1, 1)
-    return x0, U, Ub
+    win = {n: (0.1 * torch.randn((n + H_WINDOW, 12), generator=g, device=dev),
+               torch.clamp(0.5 * torch.randn((n + H_WINDOW, 8), generator=g, device=dev), -1, 1))
+           for n in WINDOW_STARTS}
+    return x0, U, Ub, win
 
 
 def main(argv=None) -> None:
@@ -260,21 +315,27 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     p, cfg, lag = fossen_params(device=dev), thruster_config(device=dev), lag_params(DT, device=dev)
     rc, tc = cr.row_consts(p, DT), cr.thruster_consts(cfg, lag)
-    x0, U, Ub = inputs(dev)
+    x0, U, Ub, win = inputs(dev)
     built = build_trees(trees)
     tau = cr.launch_tau_seq(tc, U)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def launch(so, name):
-        out = torch.empty_like(x0)
-        if name == "rollout_final":
-            rc_ = so.brov2_rollout_final(ctypes.addressof(rc), tau.data_ptr(), x0.data_ptr(),
-                                         out.data_ptr(), B, T, 1, stream)
+    def launch(so, name, n):
+        if name == "window_eval":
+            X, Uw = win[n]
+            out = torch.empty((n, 12), device=dev)
+            code = so.brov2_window_eval(ctypes.addressof(rc), ctypes.addressof(tc), X.data_ptr(),
+                                        Uw.data_ptr(), out.data_ptr(), n, H_WINDOW, 0, 1, stream)
+        elif name == "rollout_final":
+            out = torch.empty_like(x0)
+            code = so.brov2_rollout_final(ctypes.addressof(rc), tau.data_ptr(), x0.data_ptr(),
+                                          out.data_ptr(), B, T, 1, stream)
         else:
-            rc_ = so.brov2_batched_rollout(ctypes.addressof(rc), ctypes.addressof(tc),
-                                           x0.data_ptr(), Ub.data_ptr(), out.data_ptr(), B, T, 1,
-                                           1, stream)
-        _build.check(so, rc_, name)
+            out = torch.empty_like(x0)
+            code = so.brov2_batched_rollout(ctypes.addressof(rc), ctypes.addressof(tc),
+                                            x0.data_ptr(), Ub.data_ptr(), out.data_ptr(), B, T,
+                                            1, 1, stream)
+        _build.check(so, code, name)
         return out
 
     a.out.mkdir(parents=True, exist_ok=True)
@@ -285,27 +346,38 @@ def main(argv=None) -> None:
     if a.trig_bits:
         rows["trig_bits"] = trig_bits()
     for label, libs in built.items():
-        for name, (so, log, path, kernel, query) in libs.items():
-            block, per_sm = occupancy(so, query)
-            rows[f"{label} {name}"] = report(f"{label}_{name}", kernel, log,
-                                             cp.sass_text(name, path=path), block, per_sm, a.out)
-            runs[f"{label} {name}"] = lambda so=so, name=name: launch(so, name)
+        for name, (so, log, path, query) in libs.items():
+            sass = _keep_sass(cp.sass_text(name, path=path), a.out / f"{label}_{name}.sass.gz")
+            for n in KERNELS[name][5]:
+                kernel, block, per_sm = query()
+                rows[f"{label} {name} {n}"] = report(f"{label}_{name}_{n}", kernel, log, sass,
+                                                     block, per_sm)
+                runs[f"{label} {name} {n}"] = lambda so=so, name=name, n=n: launch(so, name, n)
 
     labels = list(built)
     if not a.no_current:
-        logs = _build.build(("rollout", "batched_rollout"))
-        for name, lib, kernel, (block, per_sm) in (
-                ("rollout_final", "rollout", "rollout_kernel<1>", cr.rollout_occupancy()),
-                ("batched_rollout", "batched_rollout", "batched_rollout_kernel<1, true>",
-                 ce.batched_rollout_occupancy())):
-            rows[f"current {name}"] = report(f"current_{name}", kernel, logs[lib],
-                                             cp.sass_text(lib), block, per_sm, a.out)
-        runs["current rollout_final"] = lambda: cr.launch_rollout(rc, tau, x0, "rk4")
-        runs["current batched_rollout"] = lambda: ce.launch_batched_rollout(
-            rc, tc, x0, Ub, "rk4", True)
+        logs = _build.build(("rollout", "batched_rollout", "window_eval"))
+        occ = ce.window_occupancy()
+        current = {
+            "rollout_final": ("rollout_kernel<1>", *cr.rollout_occupancy()),
+            "batched_rollout": ("batched_rollout_kernel<1, true>", *ce.batched_rollout_occupancy()),
+            "window_eval": ("window_eval_kernel<0, true, false>", occ["block"],
+                            occ["blocks_per_sm"]),
+        }
+        for name, (kernel, block, per_sm) in current.items():
+            lib = KERNELS[name][0]
+            so = _build.load_library(lib)
+            sass = _keep_sass(cp.sass_text(lib), a.out / f"current_{name}.sass.gz")
+            for n in KERNELS[name][5]:
+                rows[f"current {name} {n}"] = report(f"current_{name}_{n}", kernel, logs[lib],
+                                                     sass, block, per_sm)
+                # the C launcher, as for the other trees: the Python
+                # wrapper's checks would add host time between launches
+                runs[f"current {name} {n}"] = lambda so=so, name=name, n=n: launch(so, name, n)
         labels = [*built, "current", "current", *reversed(built)]
-    order = [f"{label} {name}" for name in KERNELS for label in labels
-             if f"{label} {name}" in runs]
+    cases = [(name, n) for name in KERNELS for n in KERNELS[name][5]]
+    order = [f"{label} {name} {n}" for name, n in cases for label in labels
+             if f"{label} {name} {n}" in runs]
 
     times = {k: [] for k in order}
     for k in order:
@@ -315,18 +387,27 @@ def main(argv=None) -> None:
     print("clocks.sm, power.draw, power.limit: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
-    for name in KERNELS:
-        have = [label for label in dict.fromkeys(labels) if f"{label} {name}" in runs]
+    for name, n in cases:
+        have = [label for label in dict.fromkeys(labels) if f"{label} {name} {n}" in runs]
         if len(have) < 2:
             continue
-        want = runs[f"{have[0]} {name}"]()
+        want = runs[f"{have[0]} {name} {n}"]()
         for label in have[1:]:
-            d = float((runs[f"{label} {name}"]() - want).abs().max())
-            print(f"max|{label} - {have[0]}| {name}: {d:.3e}")
-            rows[f"{label} {name}"][f"max_abs_diff_vs_{have[0]}"] = d
+            d = float((runs[f"{label} {name} {n}"]() - want).abs().max())
+            print(f"max|{label} - {have[0]}| {name} {n}: {d:.3e}")
+            rows[f"{label} {name} {n}"][f"max_abs_diff_vs_{have[0]}"] = d
     for k, v in times.items():
         rows[k]["ms"] = v
     (a.out / "rows.json").write_text(json.dumps(rows, indent=1))
+
+
+def _keep_sass(sass: str | None, path: Path):
+    """Write a library's SASS listing, compressed (a window_eval.cu listing
+    holds 36 instantiations), and pass it on."""
+    if sass is not None:
+        path.write_bytes(gzip.compress(sass.encode()))
+    return sass
+
 
 
 if __name__ == "__main__":

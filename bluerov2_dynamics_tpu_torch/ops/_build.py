@@ -40,7 +40,10 @@ _SIGNATURES = {
     },
     "window_eval": {
         "brov2_window_eval": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_window_sq": ([_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_window_occupancy": ([_I, _I, _I, _P, _P], _I),
         "brov2_window_eval_wrench": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "brov2_window_sq_wrench": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
     "batched_rollout": {
@@ -50,6 +53,7 @@ _SIGNATURES = {
     },
     "quat": {
         "brov2_window_eval_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_window_sq_quat": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
         "brov2_rollout_final_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
@@ -65,6 +69,7 @@ SOURCES = tuple(_SIGNATURES)
 
 launches = {"shared_tau": 0, "rollout_final": 0, "window_eval": 0, "batched_rollout": 0,
             "window_eval_wrench": 0, "window_eval_quat": 0, "rollout_final_quat": 0,
+            "window_sq": 0, "window_sq_wrench": 0, "window_sq_quat": 0,
             "fma_peak": 0, "transcendental_peak": 0, "fma_tree_peak": 0, "quat_mix_peak": 0}
 _libs: dict = {}
 

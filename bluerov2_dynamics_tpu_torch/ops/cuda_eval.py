@@ -15,16 +15,22 @@ per-trajectory rollout, as CUDA kernels and their plain PyTorch versions.
   wrench-input euler12 model, ``X (N, 12)``, ``TAU (N, 6)``, with no curve
   and no lag (the T3 app's physics baseline).
 
-``csrc/window_eval.cu`` holds K2 and K4: one thread per start, the state
-(and lag) in registers, inputs read directly (neighbouring starts read
-neighbouring rows, so a warp's loads coalesce; no pre-shifted copy of the
-input).  At the apps' shape (9,065 starts, H=100) K2 and K4 fill less than
-one wave of the H100's 132 SMs, so the latency of one thread's 100
-dependent steps, not a pipe, sets their time.  ``csrc/batched_rollout.cu``
-holds K3: one thread per trajectory, each step's commands loaded into
-registers one step ahead (:func:`stage_plan`).  The plain versions run all
-starts at once as ``(n_start,)`` rows with the same step order and
-association as the kernels.
+K2 and K4 have a fused form (``make_endpoint_sq_cuda*``): the kernel itself
+reduces ``sum over s of |x_H(s) - X[s + H]|^2`` to one float32, so an
+evaluator call is one launch and a sqrt, and K7's per-rank body
+(``parallel/sharded.py``) is one launch before its all-reduce.  Its plain
+version (``window_sq_plain*``) is the endpoints, then ``torch.sum(d * d)``
+in float32, the JAX package's per-shard body.
+
+``csrc/window_eval.cu`` holds K2 and K4: one thread per start
+(:func:`window_plan`; splitting a start over lanes of a warp measured
+slower), the state (and lag) in registers, inputs read directly
+(neighbouring starts read neighbouring rows; no pre-shifted copy of the
+input).  ``csrc/batched_rollout.cu`` holds K3: one thread per trajectory,
+each step's commands loaded into registers one step ahead
+(:func:`stage_plan`).  The plain versions run all starts at once as
+``(n_start,)`` rows with the same step order and association as the
+kernels.
 
 The wrappers dispatch on the tensors' device: CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.
@@ -49,7 +55,7 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
     ThrusterConsts,
     check_kernel_input,
     check_method,
-    host_floats,
+    host_float_groups,
     make_rhs_rows,
     rk4_rows,
     row_consts,
@@ -100,13 +106,10 @@ def _thruster_rows_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
     """The body of K2 and K3: the rows ``x0 (B, 12)`` advance T steps
     under the commands ``inputs(t) (B, 8)``, from a fresh zero lag."""
     rhs = make_rhs_rows(p)
-    c1, c3, c5, c7, c9 = host_floats(cfg.curve)
-    W = host_floats(cfg.wrench_map)
+    (c1, c3, c5, c7, c9), W, A, Bd, cl = host_float_groups(cfg.curve, cfg.wrench_map, lag.Ad,
+                                                          lag.Bd, lag.c)
     Wm = [W[6 * j:6 * j + 6] for j in range(8)]
-    A = host_floats(lag.Ad)
     Ad = [A[0:3], A[3:6], A[6:9]]
-    Bd = host_floats(lag.Bd)
-    cl = host_floats(lag.c)
 
     xs = tuple(x0.to(torch.float32).unbind(-1))
     L0 = L1 = L2 = torch.zeros((x0.shape[0], 8), dtype=torch.float32, device=x0.device)
@@ -172,16 +175,26 @@ def endpoint_final_wrench_plain(p: FossenParams, X, TAU, dt: float, H: int,
     return torch.stack(xs, dim=-1)
 
 
+# Threads a block of the window kernels: csrc/window_eval.cu's kThreads (K2,
+# K4) and csrc/quat.cu's kWindowThreads (K5).
+WINDOW_THREADS = 64
+
+
+def window_plan(n_start: int, H: int) -> dict:
+    """The window kernels' launch plan for ``n_start`` starts of ``H``
+    steps: one thread a start (``lanes``), block size and grid.  In the
+    fused form the threads of the last block past the end shadow the last
+    start and add nothing."""
+    return dict(lanes=1, block=WINDOW_THREADS, n_blocks=-(-n_start // WINDOW_THREADS),
+                n_steps=H)
+
+
 def launch_window_eval(rc: RowConsts, tc: ThrusterConsts, X, U, H: int,
                        method: str, use_lag: bool):
     """Launch K2; returns the ``(N - H, 12)`` endpoints."""
     check_method(method)
     n_start = check_window_shapes(X, U, H)
-    check_kernel_input(X, "X", 12)
-    check_kernel_input(U, "U", 8)
-    if not same_device(X, U):
-        raise ValueError("X and U must be on one device")
-    check_aligned(U, "U", 16)
+    _check_thruster_window(X, U)
     lib = _build.load_library("window_eval")
     out = torch.empty((n_start, 12), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
@@ -192,6 +205,66 @@ def launch_window_eval(rc: RowConsts, tc: ThrusterConsts, X, U, H: int,
     _build.check(lib, code, "window_eval")
     _build.launches["window_eval"] += 1
     return out
+
+
+def _check_thruster_window(X, U) -> None:
+    """Raise on what K2 does not take."""
+    check_kernel_input(X, "X", 12)
+    check_kernel_input(U, "U", 8)
+    if not same_device(X, U):
+        raise ValueError("X and U must be on one device")
+    check_aligned(U, "U", 16)
+
+
+_SQ_SCRATCH: dict = {}
+
+
+def sq_scratch(X, n_blocks: int):
+    """``(sq, partials, ticket, stream)`` for one launch of a fused window
+    kernel on the current stream of ``X``'s device: a new 0-d float32
+    result; partials of at least ``n_blocks`` floats and the ticket, both
+    kept per stream.  The ticket is zeroed once here; every launch's last
+    block leaves it at zero, and launches on one stream run in order."""
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    partials, ticket = _SQ_SCRATCH.get((X.device, stream), (None, None))
+    if ticket is None:
+        ticket = torch.zeros((), dtype=torch.int32, device=X.device)
+    if partials is None or partials.numel() < n_blocks:
+        partials = torch.empty(n_blocks, dtype=torch.float32, device=X.device)
+    _SQ_SCRATCH[X.device, stream] = partials, ticket
+    return torch.empty((), dtype=torch.float32, device=X.device), partials, ticket, stream
+
+
+def launch_window_sq(rc: RowConsts, tc: ThrusterConsts, X, U, H: int, method: str,
+                     use_lag: bool):
+    """Launch K2 fused; returns the 0-d float32 sum over the ``N - H``
+    starts of ``|x_H(s) - X[s + H]|^2``."""
+    check_method(method)
+    n_start = check_window_shapes(X, U, H)
+    _check_thruster_window(X, U)
+    lib = _build.load_library("window_eval")
+    with torch.cuda.device(X.device):
+        sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
+        code = lib.brov2_window_sq(
+            ctypes.addressof(rc), ctypes.addressof(tc), X.data_ptr(), U.data_ptr(),
+            sq.data_ptr(), partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
+            METHODS[method], int(use_lag), stream)
+    _build.check(lib, code, "window_sq")
+    _build.launches["window_sq"] += 1
+    return sq
+
+
+def window_occupancy(method: str = "euler", use_lag: bool = True, fused: bool = False) -> dict:
+    """K2's block size as the kernel launches it and the resident blocks per
+    SM of its endpoint or ``fused`` instantiation (the CUDA occupancy
+    query)."""
+    check_method(method)
+    lib = _build.load_library("window_eval")
+    block, per_sm = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.brov2_window_occupancy(
+        METHODS[method], int(use_lag), int(fused), ctypes.byref(block), ctypes.byref(per_sm)),
+        "window_eval occupancy")
+    return dict(block=block.value, blocks_per_sm=per_sm.value)
 
 
 def make_endpoint_final_cuda(
@@ -216,6 +289,46 @@ def make_endpoint_final_cuda(
         if X.device.type == "cpu":
             return endpoint_final_plain(p, cfg, lag, X, U, dt, H, method, use_lag)
         return launch_window_eval(rc, tc, X, U, H, method, use_lag)
+
+    return fn
+
+
+def endpoint_sq(final, X, H: int):
+    """``sum |final - X[H:]|^2`` in float32: the JAX package's per-shard
+    body (``parallel/sharded.py:178-179``) on the endpoints."""
+    d = final - X[H:H + final.shape[0]].to(torch.float32)
+    return torch.sum(d * d)
+
+
+def window_sq_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams, X, U, dt: float,
+                    H: int, method: str = "rk4", use_lag: bool = True):
+    """Plain PyTorch version of K2 fused: the endpoints of
+    :func:`endpoint_final_plain`, then :func:`endpoint_sq`."""
+    return endpoint_sq(endpoint_final_plain(p, cfg, lag, X, U, dt, H, method, use_lag), X, H)
+
+
+def make_endpoint_sq_cuda(
+    p: FossenParams,
+    cfg: ThrusterConfig,
+    lag: LagParams,
+    dt: float,
+    H: int,
+    method: str = "rk4",
+    use_lag: bool = True,
+):
+    """Build ``fn(X, U) -> 0-d float32``, the sum over the ``N - H`` starts
+    of ``|x_H(s) - X[s + H]|^2`` for the thruster-input model: one launch of
+    K2 fused on CUDA tensors, :func:`window_sq_plain` on CPU tensors.  The
+    endpoint RMSE is ``sqrt(sq / ((N - H) 12))``."""
+    check_method(method)
+    rc, tc = row_consts(p, dt), thruster_consts(cfg, lag)
+
+    def fn(X, U):
+        if not same_device(X, U):
+            raise ValueError(f"X and U on different devices ({X.device}, {U.device})")
+        if X.device.type == "cpu":
+            return window_sq_plain(p, cfg, lag, X, U, dt, H, method, use_lag)
+        return launch_window_sq(rc, tc, X, U, H, method, use_lag)
 
     return fn
 
@@ -318,15 +431,19 @@ def make_batched_rollout_cuda(
     return fn
 
 
-def launch_window_eval_wrench(rc: RowConsts, X, TAU, H: int, method: str):
-    """Launch K4; returns the ``(N - H, 12)`` endpoints."""
-    check_method(method)
-    n_start = check_window_shapes(X, TAU, H, n_in=6)
+def _check_wrench_window(X, TAU) -> None:
     check_kernel_input(X, "X", 12)
     check_kernel_input(TAU, "TAU", 6)
     if not same_device(X, TAU):
         raise ValueError("X and TAU must be on one device")
     check_aligned(TAU, "TAU", 8)
+
+
+def launch_window_eval_wrench(rc: RowConsts, X, TAU, H: int, method: str):
+    """Launch K4; returns the ``(N - H, 12)`` endpoints."""
+    check_method(method)
+    n_start = check_window_shapes(X, TAU, H, n_in=6)
+    _check_wrench_window(X, TAU)
     lib = _build.load_library("window_eval")
     out = torch.empty((n_start, 12), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
@@ -336,6 +453,24 @@ def launch_window_eval_wrench(rc: RowConsts, X, TAU, H: int, method: str):
     _build.check(lib, code, "window_eval_wrench")
     _build.launches["window_eval_wrench"] += 1
     return out
+
+
+def launch_window_sq_wrench(rc: RowConsts, X, TAU, H: int, method: str):
+    """Launch K4 fused; returns the 0-d float32 sum of the squared endpoint
+    errors."""
+    check_method(method)
+    n_start = check_window_shapes(X, TAU, H, n_in=6)
+    _check_wrench_window(X, TAU)
+    lib = _build.load_library("window_eval")
+    with torch.cuda.device(X.device):
+        sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
+        code = lib.brov2_window_sq_wrench(
+            ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), sq.data_ptr(),
+            partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
+            METHODS[method], stream)
+    _build.check(lib, code, "window_sq_wrench")
+    _build.launches["window_sq_wrench"] += 1
+    return sq
 
 
 def make_endpoint_final_cuda_wrench(p: FossenParams, dt: float, H: int,
@@ -351,5 +486,28 @@ def make_endpoint_final_cuda_wrench(p: FossenParams, dt: float, H: int,
         if X.device.type == "cpu":
             return endpoint_final_wrench_plain(p, X, TAU, dt, H, method)
         return launch_window_eval_wrench(rc, X, TAU, H, method)
+
+    return fn
+
+
+def window_sq_wrench_plain(p: FossenParams, X, TAU, dt: float, H: int, method: str = "rk4"):
+    """Plain PyTorch version of K4 fused: the endpoints of
+    :func:`endpoint_final_wrench_plain`, then :func:`endpoint_sq`."""
+    return endpoint_sq(endpoint_final_wrench_plain(p, X, TAU, dt, H, method), X, H)
+
+
+def make_endpoint_sq_cuda_wrench(p: FossenParams, dt: float, H: int, method: str = "rk4"):
+    """Build ``fn(X, TAU) -> 0-d float32``, the sum of the squared endpoint
+    errors of the wrench-input euler12 model: K4 fused on CUDA tensors,
+    :func:`window_sq_wrench_plain` on CPU tensors."""
+    check_method(method)
+    rc = row_consts(p, dt)
+
+    def fn(X, TAU):
+        if not same_device(X, TAU):
+            raise ValueError(f"X and TAU on different devices ({X.device}, {TAU.device})")
+        if X.device.type == "cpu":
+            return window_sq_wrench_plain(p, X, TAU, dt, H, method)
+        return launch_window_sq_wrench(rc, X, TAU, H, method)
 
     return fn

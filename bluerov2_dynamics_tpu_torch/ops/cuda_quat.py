@@ -5,7 +5,9 @@ plain PyTorch versions.
   package (reached through ``make_endpoint_final_pallas_quat``): for every
   start ``s < N - H``, H steps from ``X[s] (13,)`` under the body wrench
   ``TAU[s + t]``; the ``(N - H, 13)`` endpoints feed the T4 app's
-  endpoint RMSE.
+  endpoint RMSE.  Its fused form (``make_endpoint_sq_cuda_quat``) reduces
+  the squared endpoint errors to one float32 in the kernel, as K2's and
+  K4's do (``ops/cuda_eval.py``).
 * K6 replaces ``make_rollout_final_pallas_quat``: B starts advance T steps
   under one shared wrench sequence ``TAU (T, 6)`` -> ``(B, 13)``.
 
@@ -35,7 +37,13 @@ import torch
 
 from bluerov2_dynamics_tpu_torch.models.params import FossenParams
 from bluerov2_dynamics_tpu_torch.ops import _build
-from bluerov2_dynamics_tpu_torch.ops.cuda_eval import check_aligned, check_window_shapes
+from bluerov2_dynamics_tpu_torch.ops.cuda_eval import (
+    check_aligned,
+    check_window_shapes,
+    endpoint_sq,
+    sq_scratch,
+    window_plan,
+)
 from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
     METHODS,
     RowConsts,
@@ -144,16 +152,20 @@ def rollout_final_quat_plain(p: FossenParams, x0, TAU, dt: float, method: str = 
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def launch_window_eval_quat(rc: RowConsts, X, TAU, H: int, method: str,
-                            renormalize: bool):
-    """Launch K5; returns the ``(N - H, 13)`` endpoints."""
-    check_method(method)
-    n_start = check_window_shapes(X, TAU, H, n_state=13, n_in=6)
+def _check_quat_window(X, TAU) -> None:
     check_kernel_input(X, "X", 13)
     check_kernel_input(TAU, "TAU", 6)
     if not same_device(X, TAU):
         raise ValueError("X and TAU must be on one device")
     check_aligned(TAU, "TAU", 8)
+
+
+def launch_window_eval_quat(rc: RowConsts, X, TAU, H: int, method: str,
+                            renormalize: bool):
+    """Launch K5; returns the ``(N - H, 13)`` endpoints."""
+    check_method(method)
+    n_start = check_window_shapes(X, TAU, H, n_state=13, n_in=6)
+    _check_quat_window(X, TAU)
     lib = _build.load_library("quat")
     out = torch.empty((n_start, 13), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
@@ -163,6 +175,24 @@ def launch_window_eval_quat(rc: RowConsts, X, TAU, H: int, method: str,
     _build.check(lib, code, "window_eval_quat")
     _build.launches["window_eval_quat"] += 1
     return out
+
+
+def launch_window_sq_quat(rc: RowConsts, X, TAU, H: int, method: str, renormalize: bool):
+    """Launch K5 fused; returns the 0-d float32 sum of the squared endpoint
+    errors."""
+    check_method(method)
+    n_start = check_window_shapes(X, TAU, H, n_state=13, n_in=6)
+    _check_quat_window(X, TAU)
+    lib = _build.load_library("quat")
+    with torch.cuda.device(X.device):
+        sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
+        code = lib.brov2_window_sq_quat(
+            ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), sq.data_ptr(),
+            partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
+            METHODS[method], int(renormalize), stream)
+    _build.check(lib, code, "window_sq_quat")
+    _build.launches["window_sq_quat"] += 1
+    return sq
 
 
 def make_endpoint_final_cuda_quat(p: FossenParams, dt: float, H: int,
@@ -179,6 +209,31 @@ def make_endpoint_final_cuda_quat(p: FossenParams, dt: float, H: int,
         if X.device.type == "cpu":
             return endpoint_final_quat_plain(p, X, TAU, dt, H, method, renormalize)
         return launch_window_eval_quat(rc, X, TAU, H, method, renormalize)
+
+    return fn
+
+
+def window_sq_quat_plain(p: FossenParams, X, TAU, dt: float, H: int, method: str = "euler",
+                         renormalize: bool = True):
+    """Plain PyTorch version of K5 fused: the endpoints of
+    :func:`endpoint_final_quat_plain`, then ``cuda_eval.endpoint_sq``."""
+    return endpoint_sq(endpoint_final_quat_plain(p, X, TAU, dt, H, method, renormalize), X, H)
+
+
+def make_endpoint_sq_cuda_quat(p: FossenParams, dt: float, H: int, method: str = "euler",
+                               renormalize: bool = True):
+    """Build ``fn(X, TAU) -> 0-d float32``, the sum of the squared endpoint
+    errors of the quat13 wrench-input model: K5 fused on CUDA tensors,
+    :func:`window_sq_quat_plain` on CPU tensors."""
+    check_method(method)
+    rc = row_consts(p, dt)
+
+    def fn(X, TAU):
+        if not same_device(X, TAU):
+            raise ValueError(f"X and TAU on different devices ({X.device}, {TAU.device})")
+        if X.device.type == "cpu":
+            return window_sq_quat_plain(p, X, TAU, dt, H, method, renormalize)
+        return launch_window_sq_quat(rc, X, TAU, H, method, renormalize)
 
     return fn
 

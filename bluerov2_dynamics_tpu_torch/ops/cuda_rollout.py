@@ -67,9 +67,17 @@ class ThrusterConsts(ctypes.Structure):
                 ("c", _F * 3), ("Wm", _F * 48)]
 
 
-def host_floats(t) -> list:
-    """The stored values of a tensor as Python floats (exact in float64)."""
-    return [float(v) for v in t.detach().cpu().reshape(-1).tolist()]
+def host_float_groups(*ts) -> list:
+    """The stored values of each tensor of ``ts`` as a list of Python
+    floats (exact in float64), read back to the host in one copy: one
+    ``torch.cat`` of the flattened tensors on their device, then one
+    ``.cpu()``."""
+    flat = [float(v) for v in torch.cat([t.detach().reshape(-1) for t in ts]).cpu().tolist()]
+    out, i = [], 0
+    for t in ts:
+        out.append(flat[i:i + t.numel()])
+        i += t.numel()
+    return out
 
 
 def _hydro_floats(p: FossenParams) -> dict:
@@ -77,22 +85,23 @@ def _hydro_floats(p: FossenParams) -> dict:
     values (``Yvd - Zwd``, ``W - B``, ``zb * B``...) are formed in float64
     and round once where they meet a float32 tensor, as the JAX kernels'
     baked Python floats do."""
-    added = host_floats(p.added)
+    added, mdiag, minv, gyro, d_lin, d_quad, cb, cur, (W,), (Bf,) = host_float_groups(
+        p.added, p.mdiag, p.minv, p.gyro, p.d_lin, p.d_quad, p.cb, p.current.expand(3), p.W,
+        p.B)
     Xud, Yvd, Zwd = added[0], added[1], added[2]
-    W, Bf = float(p.W), float(p.B)
-    xb, yb, zb = host_floats(p.cb)
+    xb, yb, zb = cb
     return dict(
-        mdiag=host_floats(p.mdiag), minv=host_floats(p.minv), gyro=host_floats(p.gyro),
+        mdiag=mdiag, minv=minv, gyro=gyro,
         yz=Yvd - Zwd, zx=Zwd - Xud, xy=Xud - Yvd,
-        d_lin=host_floats(p.d_lin), d_quad=host_floats(p.d_quad),
+        d_lin=d_lin, d_quad=d_quad,
         WB=W - Bf, xbB=xb * Bf, ybB=yb * Bf, zbB=zb * Bf,
-        cur=host_floats(p.current.expand(3)),
+        cur=cur,
     )
 
 
 def row_consts(p: FossenParams, dt: float) -> RowConsts:
-    """Kernel constants of the row step; ``0.5 dt`` and ``dt / 6`` are
-    formed in float64 and rounded once."""
+    """Kernel constants of the row step, read back in one copy; ``0.5 dt``
+    and ``dt / 6`` are formed in float64 and rounded once."""
     h = _hydro_floats(p)
     k = RowConsts()
     for name in ("mdiag", "minv", "gyro", "d_lin", "d_quad", "cur"):
@@ -104,12 +113,10 @@ def row_consts(p: FossenParams, dt: float) -> RowConsts:
 
 
 def thruster_consts(cfg: ThrusterConfig, lag: LagParams) -> ThrusterConsts:
+    """Kernel constants of the actuation, read back in one copy."""
     c = ThrusterConsts()
-    c.curve[:] = host_floats(cfg.curve)
-    c.Ad[:] = host_floats(lag.Ad)
-    c.Bd[:] = host_floats(lag.Bd)
-    c.c[:] = host_floats(lag.c)
-    c.Wm[:] = host_floats(cfg.wrench_map)
+    c.curve[:], c.Ad[:], c.Bd[:], c.c[:], c.Wm[:] = host_float_groups(
+        cfg.curve, lag.Ad, lag.Bd, lag.c, cfg.wrench_map)
     return c
 
 

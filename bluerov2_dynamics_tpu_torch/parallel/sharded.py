@@ -14,10 +14,14 @@ rank, as a JAX result is one global array.
 * :func:`shardmap_window_rmse` (K7) and its wrappers
   ``shardmap_endpoint_rmse_cuda`` / ``_wrench`` / ``_quat`` replace the
   JAX package's ``_shardmap_window_rmse`` with the Pallas window kernels
-  as the per-shard body.  Each rank runs the port's single-device window
-  evaluator (K2, K4 or K5) on views of its block of the replicated
-  recording; the views need no copy and no pre-shifted input.  CPU tensors
-  take the plain versions, CUDA tensors the kernels (or raise).
+  as the per-shard body.  Each rank runs the fused form of the port's
+  single-device window evaluator (K2, K4 or K5,
+  ``make_endpoint_sq_cuda*``) on views of its block of the replicated
+  recording: one launch returns the block's squared-error sum, then a
+  one-element all-reduce and a sqrt.  The views need no copy and no
+  pre-shifted input.  CPU tensors take the plain versions, CUDA tensors
+  the kernels (or raise).  :func:`window_block_sq` keeps the unfused body
+  (endpoints, then ``torch.sum``) for the card checks.
 
 The JAX package's sharded Koopman, streaming-statistics and filter-bank
 functions come with the modules they call.
@@ -32,10 +36,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from bluerov2_dynamics_tpu_torch.ops.cuda_eval import (
-    make_endpoint_final_cuda,
-    make_endpoint_final_cuda_wrench,
+    endpoint_sq,
+    make_endpoint_sq_cuda,
+    make_endpoint_sq_cuda_wrench,
 )
-from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_final_cuda_quat
+from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_sq_cuda_quat
 from bluerov2_dynamics_tpu_torch.parallel.mesh import axis
 
 
@@ -129,33 +134,35 @@ def shardmap_endpoint_rmse(mesh: DeviceMesh, step: Callable, X, U, H: int,
 
 
 def window_block_sq(final_fn: Callable, X, U, H: int, start: int, m: int):
-    """The per-rank body of K7: the float32 sum of squared endpoint errors
-    of starts ``[start, start + m)``.  ``final_fn`` is a single-device
-    window evaluator (``make_endpoint_final_cuda*``), run on the views
-    ``X[start : start + m + H]`` and ``U[start : start + m + H]``; views
-    of contiguous inputs keep the row alignment the kernels check."""
-    final = final_fn(X[start:start + m + H], U[start:start + m + H])
-    d = final - X[H + start:H + start + m].to(torch.float32)
-    return torch.sum(d * d)
+    """The unfused per-rank body of K7: the float32 sum of squared endpoint
+    errors of starts ``[start, start + m)``, as a single-device window
+    evaluator ``final_fn`` (``make_endpoint_final_cuda*``) on the views
+    ``X[start : start + m + H]`` and ``U[start : start + m + H]``, then
+    ``torch.sum``.  Views of contiguous inputs keep the row alignment the
+    kernels check."""
+    Xb = X[start:start + m + H]
+    return endpoint_sq(final_fn(Xb, U[start:start + m + H]), Xb, H)
 
 
-def shardmap_window_rmse(mesh: DeviceMesh, final_fn: Callable, X, U, H: int,
+def shardmap_window_rmse(mesh: DeviceMesh, sq_fn: Callable, X, U, H: int,
                          data_axis: str = "data"):
     """K7, the composition the three sharded window evaluators share (the
-    JAX package's ``_shardmap_window_rmse``): rank r of S runs the
-    single-device evaluator ``final_fn`` on starts ``[r m, (r + 1) m)``,
-    ``m = n_start / S``, and the squared-error sums are all-reduced; the
-    result is ``sqrt(total / (n_start n))``.  Requires ``n_start % S ==
-    0``.  The wrappers below build ``final_fn`` on every call, which reads
-    the coefficients back to the host; a caller that evaluates often builds
-    it once (``make_endpoint_final_cuda*``) and calls this."""
+    JAX package's ``_shardmap_window_rmse``): rank r of S runs the fused
+    single-device evaluator ``sq_fn`` (``make_endpoint_sq_cuda*``: one
+    launch) on the views of its starts ``[r m, (r + 1) m)``, ``m = n_start /
+    S``, the one-element sums are all-reduced, and the result is
+    ``sqrt(total / (n_start n))``.  Requires ``n_start % S == 0``.  The
+    wrappers below build ``sq_fn`` on every call, which reads the
+    coefficients back to the host in one copy; a caller that evaluates
+    often builds it once and calls this."""
     N, n = X.shape
     n_start = N - H
     if n_start <= 0:
         return _nan(X)
     group, size, index = axis(mesh, data_axis)
     m = _check_divisible(n_start, size)
-    sq = window_block_sq(final_fn, X, U, H, index * m, m)
+    lo = index * m
+    sq = sq_fn(X[lo:lo + m + H], U[lo:lo + m + H])
     dist.all_reduce(sq, group=group)
     return torch.sqrt(sq / (n_start * n))
 
@@ -164,20 +171,20 @@ def shardmap_endpoint_rmse_cuda(mesh: DeviceMesh, p, cfg, lag, X, U, dt: float, 
                                 method: str = "rk4", use_lag: bool = True,
                                 data_axis: str = "data"):
     """Sharded endpoint RMSE of the thruster-input euler12 model, ``X (N,
-    12)``, ``U (N, 8)``, with K2 (``make_endpoint_final_cuda``) as the
+    12)``, ``U (N, 8)``, with K2 fused (``make_endpoint_sq_cuda``) as the
     per-rank body.  The JAX twin's ``block_b`` and ``interpret`` have no
-    meaning here: one CUDA thread runs one start, and CPU tensors take the
-    plain version."""
-    fn = make_endpoint_final_cuda(p, cfg, lag, dt, H, method, use_lag)
+    meaning here: the kernel's launch plan is its own, and CPU tensors take
+    the plain version."""
+    fn = make_endpoint_sq_cuda(p, cfg, lag, dt, H, method, use_lag)
     return shardmap_window_rmse(mesh, fn, X, U, H, data_axis)
 
 
 def shardmap_endpoint_rmse_cuda_wrench(mesh: DeviceMesh, p, X, TAU, dt: float, H: int,
                                        method: str = "rk4", data_axis: str = "data"):
     """Sharded endpoint RMSE of the wrench-input euler12 model (the T3
-    physics baseline), ``X (N, 12)``, ``TAU (N, 6)``, with K4 as the
+    physics baseline), ``X (N, 12)``, ``TAU (N, 6)``, with K4 fused as the
     per-rank body.  No ``block_b`` or ``interpret``, as above."""
-    fn = make_endpoint_final_cuda_wrench(p, dt, H, method)
+    fn = make_endpoint_sq_cuda_wrench(p, dt, H, method)
     return shardmap_window_rmse(mesh, fn, X, TAU, H, data_axis)
 
 
@@ -185,7 +192,7 @@ def shardmap_endpoint_rmse_cuda_quat(mesh: DeviceMesh, p, X, TAU, dt: float, H: 
                                      method: str = "euler", renormalize: bool = True,
                                      data_axis: str = "data"):
     """Sharded endpoint RMSE of the quat13 wrench-input model (the T4
-    physics baseline), ``X (N, 13)``, ``TAU (N, 6)``, with K5 as the
+    physics baseline), ``X (N, 13)``, ``TAU (N, 6)``, with K5 fused as the
     per-rank body.  No ``block_b`` or ``interpret``, as above."""
-    fn = make_endpoint_final_cuda_quat(p, dt, H, method, renormalize)
+    fn = make_endpoint_sq_cuda_quat(p, dt, H, method, renormalize)
     return shardmap_window_rmse(mesh, fn, X, TAU, H, data_axis)

@@ -9,38 +9,51 @@ Phases (any failure raises and ends the run with a non-zero code):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every kernel from ``bluerov2_dynamics_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together; then, for the two
-   redesigned euler12 RK4 rollouts K1 and K3, their registers, stack
+   ``nvcc`` per source, all started together; then, for the redesigned
+   kernels (the euler12 RK4 rollouts K1 and K3, and K2 in its fused and
+   endpoint forms at 9,065 and 44,800 starts), their registers, stack
    frame and spill bytes (ptxas), resident blocks per SM at the launched
-   block size (the CUDA occupancy query), block size and stage plan, and
-   the step loop's opcode counts (``cuobjdump -sass``); either spilling,
-   or needing a second wave at the bench shape, fails the run;
+   block size (the CUDA occupancy query), block size, K3's stage plan and
+   K2's waves, and the step loop's opcode counts
+   (``cuobjdump -sass``); a spill, or K1/K3 needing a second wave at the
+   bench shape, fails the run;
 3. main paths, each with every launch count set to 0 just before it and
    read just after; each must have launched its kernels:
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
      ``make_rollout_final_cuda``;
    - T2: the tank app's Fossen evaluator (Euler) at H = 1, 10, 100 on a
-     9,165-row recording through ``apps.tank_koopman.fossen_evaluator`` (K2);
+     9,165-row recording through ``apps.tank_koopman.fossen_evaluator``
+     (K2 fused: one launch returns the squared-error sum);
    - T3: the wrench app's evaluator on the same recording's wrench through
-     ``apps.tank_wrench_comp.fossen_wrench_evaluator`` (K4);
+     ``apps.tank_wrench_comp.fossen_wrench_evaluator`` (K4 fused);
    - T4: the quaternion app's evaluator on its quat13 version through
-     ``apps.tank_wrench_quat.fossen_quat_evaluator`` (K5);
+     ``apps.tank_wrench_quat.fossen_quat_evaluator`` (K5 fused);
+   - the window endpoints: ``make_endpoint_final_cuda*`` at H=100 on the
+     same recordings (K2, K4, K5 writing the endpoint states);
    - K6: the quat13 shared-wrench RK4 rollout at 65,536 x 500 through
      ``make_rollout_final_cuda_quat``;
    - K3: the per-trajectory-command RK4 rollout at 65,536 x 500 through
      ``make_batched_rollout_cuda``;
 4. checks: each kernel against its plain PyTorch version on the same card
-   inputs, the evaluators' RMSEs against the plain step loops, K6's
-   quaternion norms, and small inputs against the plain versions on the
-   host CPU;
-5. timing with CUDA events: each kernel and its plain version, the window
-   kernels at 9,065 and 44,800 starts, and the calls end to end;
+   inputs (K2 at both start counts; the fused sums at rtol 1e-5 and with
+   the same bits on ten calls), the evaluators' RMSEs
+   against the plain step loops, K6's quaternion norms, and small inputs
+   against the plain versions on the host CPU;
+5. timing: each kernel and its plain version with CUDA events, the window
+   kernels (as short as their launchers' host time) at 9,065 and 44,800
+   starts by the profiler's device events, and the calls end to end (the
+   evaluators in turns with the unfused policy they replace, 5 repeats of
+   20 calls, min / median / max);
 6. K7: the three sharded window evaluators (``parallel.sharded``) at
-   44,800 starts x H=100 (Euler) on a one-rank NCCL group, held against
-   the unsharded kernels and the plain versions; then four contiguous
-   blocks through the same per-rank body, whose squared errors must sum to
-   the world-1 result (world > 1 needs one card per rank: NCCL refuses two
-   ranks on one card, so the 4-rank runs are the CPU tests' work);
+   44,800 starts x H=100 (Euler) on a one-rank NCCL group, one fused
+   launch a call, held against the unsharded kernels, the unfused
+   composition and the plain versions; then four contiguous blocks
+   through the unfused per-rank body, whose squared errors must sum to the
+   world-1 result (world > 1 needs one card per rank: NCCL refuses two
+   ranks on one card, so the 4-rank runs are the CPU tests' work); the
+   fused and unfused compositions timed in turns (5 repeats of 20 calls),
+   and ``torch.profiler`` once over the fused one for the device-busy
+   share;
 7. K8: the four ceiling probes at 65,536 lanes, each at the block size
    that measures fastest, with the card's clocks and power beside each
    rate; each kernel against its plain version at 16 iterations; the
@@ -78,6 +91,11 @@ FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
 K7_BACKEND = "nccl"
 K7_BLOCKS = 4                       # offset blocks of the world-1 check
+REPEATS, CALLS = 5, 20              # spread of the host-bound calls: repeats of CALLS calls
+# the fused window kernels: (the evaluator that runs them, their endpoint form)
+FUSED = {"window_sq": ("fossen_evaluator", "window_eval"),
+         "window_sq_wrench": ("fossen_wrench_evaluator", "window_eval_wrench"),
+         "window_sq_quat": ("fossen_quat_evaluator", "window_eval_quat")}
 PROBE_BLOCKS = (128, 256, 512)      # threads per block tried for each probe
 CHECK_ITERS = 16                    # probe iterations of the check against the plain versions
 
@@ -103,6 +121,11 @@ TOL = {
     # K7 against the unsharded kernel: the same per-rank kernel, one float32
     # sum reordered (against the plain versions K7 keeps "rmse")
     "sharded_rmse": (1e-5, 0.0),
+    # the fused window kernels' sums against the plain versions': float32
+    # squares summed in another order (csrc/fossen_rows.cuh grid_sum)
+    "window_sq": (1e-5, 0.0),
+    "window_sq_wrench": (1e-5, 0.0),
+    "window_sq_quat": (1e-5, 0.0),
     # K8 at CHECK_ITERS: one rounding of a fused multiply-add where the
     # plain version has two, over 16 dependent steps.  The fma probe is held
     # by its increment (cuda_probes.fma_peak_increment): its output moves
@@ -180,41 +203,56 @@ def gimbal_near(fossen, p, cfg, lag, x0, U):
 
 
 STEP_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "MUFU.RCP", "F2I", "I2FP", "FCHK", "BRA",
-            "BSSY", "BSYNC", "LDS", "LDG", "BAR")
+            "BSSY", "BSYNC", "LDS", "LDG", "BAR", "SHFL")
 
 
 def redesigned_report(logs) -> dict:
-    """K1's and K3's resources, residency, plan and step-loop opcode counts
-    (RK4, lag); fails if either spills or needs a second wave at the bench
-    shape."""
+    """The redesigned kernels' resources, residency, plan and step-loop
+    opcode counts: K1 and K3 (RK4 with the lag) at the bench shape, K2
+    (Euler with the lag) in its fused form, which the apps run, and its
+    endpoint form, at the apps' and the full recording's starts.  Fails if
+    any spills, or if K1 or K3 needs a second wave at the bench shape."""
     from bluerov2_dynamics_tpu_torch.ops import _build
     from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
     from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
     from bluerov2_dynamics_tpu_torch.ops import cuda_rollout as cr
 
-    plan = ce.stage_plan(B_ROLL, T_ROLL)
-    kernels = {  # name: (library, mangled-name part, (block, resident blocks per SM), plan)
-        "rollout_final": ("rollout", "14rollout_kernelILi1EE", cr.rollout_occupancy(), None),
-        "batched_rollout": ("batched_rollout", "22batched_rollout_kernelILi1ELb1EE",
-                            ce.batched_rollout_occupancy(), plan),
-    }
+    H = H_APP[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # name: (library, mangled-name part, block, resident blocks per SM, blocks, lanes,
+    #        a second wave fails, step loop read)
+    kernels = {}
+    for name, lib, (block, per_sm), key in (
+            ("rollout_final", "rollout", cr.rollout_occupancy(), "14rollout_kernelILi1EE"),
+            ("batched_rollout", "batched_rollout", ce.batched_rollout_occupancy(),
+             "22batched_rollout_kernelILi1ELb1EE")):
+        kernels[name] = (lib, key, block, per_sm, -(-B_ROLL // block), 1, True, True)
+    for n in (N_REC - H, N_LARGE):
+        for fused in (True, False):
+            occ = ce.window_occupancy("euler", True, fused=fused)
+            kernels[f"window_{'sq' if fused else 'eval'} {n}"] = (
+                "window_eval", f"18window_eval_kernelILi0ELb1ELb{int(fused)}EE", occ["block"],
+                occ["blocks_per_sm"], ce.window_plan(n, H)["n_blocks"], 1, False, fused)
     out = {}
-    for name, (lib, key, (block, per_sm), pl) in kernels.items():
+    for name, (lib, key, block, per_sm, n_blocks, lanes, one_wave, read_loop) in kernels.items():
         res = [r for fn, r in _build.ptxas_resources(logs[lib]).items() if key in fn]
         if len(res) != 1:
             fail(f"ptxas: {len(res)} functions match {key}")
         res = res[0]
-        n_blocks = -(-B_ROLL // block)
-        waves = -(-n_blocks // (per_sm * torch.cuda.get_device_properties(0).multi_processor_count))
+        waves = -(-n_blocks // (per_sm * sms))
+        plan = f"; stage plan {ce.stage_plan(B_ROLL, T_ROLL)}" if name == "batched_rollout" else ""
         print(f"{name}: {res['regs']} registers, {res['stack']}-byte stack frame, spill "
-              f"{res['spill_stores']}/{res['spill_loads']} bytes (stores/loads); {block} threads "
-              f"a block, {per_sm} resident blocks per SM: {n_blocks} blocks in {waves} wave(s)"
-              + (f"; stage plan {pl}" if pl else ""))
+              f"{res['spill_stores']}/{res['spill_loads']} bytes (stores/loads); {lanes} lane(s) "
+              f"a trajectory, {block} threads a block, {per_sm} resident blocks per SM: "
+              f"{n_blocks} blocks in {waves} wave(s){plan}")
         if res["spill_stores"] or res["spill_loads"]:
             fail(f"{name} spills {res['spill_stores']}/{res['spill_loads']} bytes")
-        if waves > 1:
+        if one_wave and waves > 1:
             fail(f"{name}: {n_blocks} blocks of {block} threads need {waves} waves")
-        out[name] = dict(regs=res["regs"], stack=res["stack"], blocks_per_sm=per_sm, block=block)
+        out[name] = dict(regs=res["regs"], stack=res["stack"], blocks_per_sm=per_sm, block=block,
+                         lanes=lanes, waves=waves)
+        if not read_loop:
+            continue
         text = cp.sass_text(lib)
         if text is None:
             print(f"{name}: cuobjdump not found; step loop not read")
@@ -225,6 +263,51 @@ def redesigned_report(logs) -> dict:
               f"({sum(loop['static'].values())} with the slow paths): {counts}")
         out[name]["step_loop"] = counts
     return out
+
+
+def profile_calls(fn, calls=CALLS):
+    """``torch.profiler`` over ``calls`` calls of ``fn`` after one warm-up:
+    ``(device events, host microseconds of the window)``; no events where
+    the profiler cannot trace the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+        return [], 0.0
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall_us
+
+
+def device_ms(fn, calls=CALLS):
+    """Mean device milliseconds a call of ``fn`` (its kernels, copies and
+    sets as the profiler traces them), or None without device events.  A
+    kernel shorter than its launcher's host time cannot be timed by CUDA
+    events around back-to-back calls: the device waits on the host."""
+    dev, _ = profile_calls(fn, calls)
+    return 1e-3 * sum(e.time_range.elapsed_us() for e in dev) / calls if dev else None
+
+
+def device_busy_share(fn):
+    """The device's busy time (its kernel, copy and set events) over the
+    host time of CALLS calls of ``fn``, or None where the trace holds no
+    device event."""
+    dev, wall_us = profile_calls(fn)
+    if not dev:
+        print("torch.profiler: no device events; device-busy share not measured")
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    names = sorted({e.name for e in dev})
+    print(f"torch.profiler over {CALLS} fused K7 compositions: {len(dev)} device events "
+          f"({', '.join(n[:60] for n in names)}), busy {busy:.1f} of {wall_us:.1f} us = "
+          f"{busy / wall_us:.4f} busy share")
+    return busy / wall_us
 
 
 def main() -> None:
@@ -331,14 +414,21 @@ def main() -> None:
     roll = cr.make_rollout_final_cuda(p, cfg, lag, DT, "rk4")
     xT = drive("K1 rollout", ("shared_tau", "rollout_final"), lambda: roll(x0, U))
     evaluate = fossen_evaluator(DT, X_rec, U_rec, method="euler")
-    rmses = drive("T2 evaluator", ("window_eval",),
+    rmses = drive("T2 evaluator", ("window_sq",),
                   lambda: {H: float(evaluate(H)) for H in H_APP})
     evaluate3 = fossen_wrench_evaluator(DT, X_rec, W_rec, method="euler")
-    rmses3 = drive("T3 evaluator", ("window_eval_wrench",),
+    rmses3 = drive("T3 evaluator", ("window_sq_wrench",),
                    lambda: {H: float(evaluate3(H)) for H in H_APP})
     evaluate4 = fossen_quat_evaluator(DT, X13_rec, W_rec, method="euler")
-    rmses4 = drive("T4 evaluator", ("window_eval_quat",),
+    rmses4 = drive("T4 evaluator", ("window_sq_quat",),
                    lambda: {H: float(evaluate4(H)) for H in H_APP})
+    H = H_APP[-1]
+    endpoint_fns = (ce.make_endpoint_final_cuda(p, cfg, lag, DT, H, "euler"),
+                    ce.make_endpoint_final_cuda_wrench(p, DT, H, "euler"),
+                    cq.make_endpoint_final_cuda_quat(p, DT, H, "euler"))
+    finals = drive("window endpoints", ("window_eval", "window_eval_wrench", "window_eval_quat"),
+                   lambda: [fn(X, V) for fn, X, V in zip(
+                       endpoint_fns, (X_rec, X_rec, X13_rec), (U_rec, W_rec, W_rec))])
     roll_q = cq.make_rollout_final_cuda_quat(p, DT, "rk4")
     xqT = drive("K6 quat13 rollout", ("rollout_final_quat",), lambda: roll_q(xq0, TAUq))
     roll_b = ce.make_batched_rollout_cuda(p, cfg, lag, DT, "rk4")
@@ -349,7 +439,10 @@ def main() -> None:
         if not all(np.isfinite(v) for v in r.values()):
             fail(f"a {app} endpoint RMSE is not finite")
     for name, out, shape in (("rollout", xT, (B_ROLL, 12)), ("quat13 rollout", xqT, (B_ROLL, 13)),
-                             ("batched rollout", xbT, (B_ROLL, 12))):
+                             ("batched rollout", xbT, (B_ROLL, 12)),
+                             ("K2 endpoints", finals[0], (N_REC - H, 12)),
+                             ("K4 endpoints", finals[1], (N_REC - H, 12)),
+                             ("K5 endpoints", finals[2], (N_REC - H, 13))):
         if out.shape != shape or not torch.isfinite(out).all():
             fail(f"{name} output is not finite {shape}")
 
@@ -360,16 +453,34 @@ def main() -> None:
     err = {"shared_tau": max_err(tau_k, tau_p, "shared_tau"),
            "rollout_final": max_err(xT, cr.rollout_rows_plain(p, tau_p, x0, DT, "rk4"),
                                     "rollout_final")}
-    H = H_APP[-1]
-    err["window_eval"] = max_err(ce.launch_window_eval(rc, tc, X_rec, U_rec, H, "euler", True),
-                                 ce.endpoint_final_plain(p, cfg, lag, X_rec, U_rec, DT, H, "euler"),
-                                 "window_eval")
+    err["window_eval"] = max_err(finals[0], ce.endpoint_final_plain(
+        p, cfg, lag, X_rec, U_rec, DT, H, "euler"), "window_eval")
     err["window_eval_wrench"] = max_err(
-        ce.launch_window_eval_wrench(rc, X_rec, W_rec, H, "euler"),
-        ce.endpoint_final_wrench_plain(p, X_rec, W_rec, DT, H, "euler"), "window_eval_wrench")
+        finals[1], ce.endpoint_final_wrench_plain(p, X_rec, W_rec, DT, H, "euler"),
+        "window_eval_wrench")
     err["window_eval_quat"] = max_err(
-        cq.launch_window_eval_quat(rc, X13_rec, W_rec, H, "euler", True),
-        cq.endpoint_final_quat_plain(p, X13_rec, W_rec, DT, H, "euler"), "window_eval_quat")
+        finals[2], cq.endpoint_final_quat_plain(p, X13_rec, W_rec, DT, H, "euler"),
+        "window_eval_quat")
+    # the fused sums: against the plain versions, and the same bits on ten calls
+    fused = {  # name: (kernel, plain, X, input)
+        "window_sq": (lambda X, V: ce.launch_window_sq(rc, tc, X, V, H, "euler", True),
+                      lambda X, V: ce.window_sq_plain(p, cfg, lag, X, V, DT, H, "euler"),
+                      X_rec, U_rec),
+        "window_sq_wrench": (lambda X, V: ce.launch_window_sq_wrench(rc, X, V, H, "euler"),
+                             lambda X, V: ce.window_sq_wrench_plain(p, X, V, DT, H, "euler"),
+                             X_rec, W_rec),
+        "window_sq_quat": (lambda X, V: cq.launch_window_sq_quat(rc, X, V, H, "euler", True),
+                           lambda X, V: cq.window_sq_quat_plain(p, X, V, DT, H, "euler"),
+                           X13_rec, W_rec),
+    }
+    for name, (kern, plain, X, V) in fused.items():
+        got, want = float(kern(X, V)), float(plain(X, V))
+        close(got, want, TOL[name][0], f"{name}: fused sum vs the plain version's")
+        err[name] = abs(got - want)
+        bits = {kern(X, V).cpu().numpy().tobytes() for _ in range(10)}
+        print(f"{name}: {len(bits)} distinct result(s) in 10 calls")
+        if len(bits) != 1:
+            fail(f"{name}: ten calls gave {len(bits)} different sums")
     err["rollout_final_quat"] = max_err(xqT, cq.rollout_final_quat_plain(p, xq0, TAUq, DT, "rk4"),
                                         "rollout_final_quat")
     near = gimbal_near(fossen, p, cfg, lag, x0, Ub)
@@ -491,47 +602,93 @@ def main() -> None:
             lambda X, Ti: cq.endpoint_final_quat_plain(p, X, Ti, DT, H, "euler"),
             quat_ops("euler"), 6, ((X13_rec, W_rec), (X13_l, TAU_l))),
     }
-    large = {}
+    # the fused forms: the same steps, then the squared errors summed in the
+    # kernel; inputs read once (the targets are rows of X), one float written
+    for name, (kern, plain, _, _) in fused.items():
+        windows[name] = (kern, plain, *windows[FUSED[name][1]][2:])
+    # the window kernels are as short as their launchers' host time, so
+    # their time is the profiler's device time (CUDA events beside it)
+    large, event_ms = {}, {}
     for name, (kern, plain, ops_step, n_in, inputs) in windows.items():
         for X, Ui in inputs:
             n_start, n_state = X.shape[0] - H, X.shape[1]
-            k_ms = cuda_event_time(lambda: kern(X, Ui), iters=20)
+            e_ms = cuda_event_time(lambda: kern(X, Ui), iters=20)
+            k_ms = device_ms(lambda: kern(X, Ui))
+            if k_ms is None:
+                print(f"{name}: no device events; its time is the CUDA-event time")
+                k_ms = e_ms
             p_ms = cuda_event_time(lambda: plain(X, Ui), iters=3)
-            b = bound(n_start * H * ops_step, 4 * (n_start * n_state * 2 + X.shape[0] * n_in))
+            nbytes = (4 * (n_start * n_state * 2 + X.shape[0] * n_in) if name.startswith("window_eval")
+                      else 4 * (X.shape[0] * (n_state + n_in) + 1))
+            b = bound(n_start * H * ops_step, nbytes)
             shape = (f"X ({X.shape[0]}, {n_state}), input ({X.shape[0]}, {n_in}), "
                      f"{n_start} starts x H={H}, Euler")
-            print(f"{name} at {n_start} starts: {k_ms:.4f} ms (plain {p_ms:.1f} ms, "
-                  f"bound {b[0]:.4f} ms by {b[1]})")
+            print(f"{name} at {n_start} starts: {k_ms:.4f} ms on the device, {e_ms:.4f} ms "
+                  f"between CUDA events (plain {p_ms:.1f} ms, bound {b[0]:.4f} ms by {b[1]})")
             if n_start == N_REC - H:
                 ms[name], plain_ms[name], bounds[name], shapes[name] = k_ms, p_ms, b, shape
+                event_ms[name] = e_ms
             else:
-                large[name] = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
-                                   bound_by=b[1])
-    for label, fn in (("fossen_evaluator", evaluate), ("fossen_wrench_evaluator", evaluate3),
-                      ("fossen_quat_evaluator", evaluate4)):
-        _, t_eval = time_fn(fn, H, warmup=1, iters=5)
-        print(f"{label}(H={H}) end to end: {1e3 * t_eval:.4f} ms ({N_REC - H} starts)")
+                large[name] = dict(shape=shape, ms=k_ms, event_ms=e_ms, plain_ms=p_ms,
+                                   bound_ms=b[0], bound_by=b[1])
+    # K2 at the full recording's starts too (the main path held it at the apps')
+    X, Ui = windows["window_eval"][4][1]
+    print(f"K2 at {X.shape[0] - H} starts:", end=" ")
+    max_err(ce.launch_window_eval(rc, tc, X, Ui, H, "euler", True),
+            ce.endpoint_final_plain(p, cfg, lag, X, Ui, DT, H, "euler"), "window_eval")
+
+    # the evaluators end to end, in turns with the unfused policy they
+    # replace (the endpoint kernel, then metrics.rmse: four more small ops)
+    evaluator_ms = {}
+    for label, fn, final_fn, X, V in (
+            ("fossen_evaluator", evaluate, endpoint_fns[0], X_rec, U_rec),
+            ("fossen_wrench_evaluator", evaluate3, endpoint_fns[1], X_rec, W_rec),
+            ("fossen_quat_evaluator", evaluate4, endpoint_fns[2], X13_rec, W_rec)):
+        runs = {"fused": lambda: fn(H),
+                "unfused": lambda: metrics.rmse(X[H:], final_fn(X, V))}
+        close(float(runs["fused"]()), float(runs["unfused"]()), TOL["sharded_rmse"][0],
+              f"{label}(H={H}): fused vs unfused")
+        t = {k: [] for k in runs}
+        for _ in range(REPEATS):
+            for k, run in runs.items():
+                t[k].append(1e3 * time_fn(run, warmup=0, iters=CALLS)[1])
+        evaluator_ms[label] = {k: dict(min=min(v), median=sorted(v)[REPEATS // 2], max=max(v))
+                               for k, v in t.items()}
+        e = evaluator_ms[label]
+        print(f"{label}(H={H}) end to end, {N_REC - H} starts: fused min {e['fused']['min']:.4f} "
+              f"/ median {e['fused']['median']:.4f} / max {e['fused']['max']:.4f} ms, unfused "
+              f"{e['unfused']['min']:.4f} / {e['unfused']['median']:.4f} / "
+              f"{e['unfused']['max']:.4f} ms ({REPEATS} repeats of {CALLS} calls, in turns)")
 
     # 6. K7: the sharded window evaluators, world 1 -------------------------------
     m_blk = N_LARGE // K7_BLOCKS
-    k7 = {  # name: (per-rank kernel, sharded wrapper, single-device evaluator, X, input)
+    k7 = {  # name: (fused per-rank kernel, its endpoint form, sharded wrapper, fused and
+            #        single-device evaluators, X, input)
         "sharded_window_eval": (
-            "window_eval",
+            "window_sq", "window_eval",
             lambda mesh, X, Ui: sharded.shardmap_endpoint_rmse_cuda(
                 mesh, p, cfg, lag, X, Ui, DT, H, method="euler"),
+            ce.make_endpoint_sq_cuda(p, cfg, lag, DT, H, "euler"),
             ce.make_endpoint_final_cuda(p, cfg, lag, DT, H, "euler"), X12_l, U8_l),
         "sharded_window_eval_wrench": (
-            "window_eval_wrench",
+            "window_sq_wrench", "window_eval_wrench",
             lambda mesh, X, Ti: sharded.shardmap_endpoint_rmse_cuda_wrench(
                 mesh, p, X, Ti, DT, H, method="euler"),
+            ce.make_endpoint_sq_cuda_wrench(p, DT, H, "euler"),
             ce.make_endpoint_final_cuda_wrench(p, DT, H, "euler"), X12_l, TAU_l),
         "sharded_window_eval_quat": (
-            "window_eval_quat",
+            "window_sq_quat", "window_eval_quat",
             lambda mesh, X, Ti: sharded.shardmap_endpoint_rmse_cuda_quat(
                 mesh, p, X, Ti, DT, H, method="euler"),
+            cq.make_endpoint_sq_cuda_quat(p, DT, H, "euler"),
             cq.make_endpoint_final_cuda_quat(p, DT, H, "euler"), X13_l, TAU_l),
     }
-    k7_launches, wrapper_ms, k7_unsharded_err = {}, {}, {}
+
+    def unfused(final_fn):
+        """K7's unfused per-rank body: endpoints, then ``torch.sum``."""
+        return lambda Xb, Ub: sharded.window_block_sq(final_fn, Xb, Ub, H, 0, Xb.shape[0] - H)
+
+    k7_launches, wrapper_ms, k7_unsharded_err, composition = {}, {}, {}, {}
     pmesh.init_group(K7_BACKEND, device=dev)
     try:
         mesh1 = pmesh.make_mesh(axis_names=("data",), device_type="cuda")
@@ -539,19 +696,21 @@ def main() -> None:
 
         def k7_path():
             out = {}
-            for name, (_, wrapper, final_fn, X, Ui) in k7.items():
+            for name, (_, _, wrapper, _, final_fn, X, Ui) in k7.items():
                 world1 = wrapper(mesh1, X, Ui)
                 sq = sum(sharded.window_block_sq(final_fn, X, Ui, H, r * m_blk, m_blk)
                          for r in range(K7_BLOCKS))
                 out[name] = (float(world1), float(torch.sqrt(sq / (N_LARGE * X.shape[1]))))
             return out
 
-        k7_res = drive("K7 sharded windows (world 1, then 4 offset blocks)",
-                       [v[0] for v in k7.values()], k7_path, into=k7_launches)
-        for kname, c in k7_launches.items():
-            if c != 1 + K7_BLOCKS:
-                fail(f"K7: kernel {kname} launched {c} times, not 1 + {K7_BLOCKS}")
-        for name, (kname, wrapper, final_fn, X, Ui) in k7.items():
+        k7_res = drive(f"K7 sharded windows (world 1, then {K7_BLOCKS} unfused offset blocks)",
+                       [v[0] for v in k7.values()] + [v[1] for v in k7.values()], k7_path,
+                       into=k7_launches)
+        for name, (fname, kname, *_) in k7.items():
+            if (k7_launches[fname], k7_launches[kname]) != (1, K7_BLOCKS):
+                fail(f"K7 {name}: {k7_launches[fname]} fused and {k7_launches[kname]} endpoint "
+                     f"launches, not 1 and {K7_BLOCKS}")
+        for name, (fname, kname, wrapper, sq_fn, final_fn, X, Ui) in k7.items():
             world1, blocks = k7_res[name]
             plain = windows[kname][1]
             unsharded = float(metrics.rmse(X[H:], final_fn(X, Ui)))
@@ -559,20 +718,40 @@ def main() -> None:
                   f"{name}: world-1 RMSE vs the unsharded kernel's")
             k7_unsharded_err[name] = abs(world1 - unsharded)
             close(blocks, world1, TOL["sharded_rmse"][0],
-                  f"{name}: {K7_BLOCKS} offset blocks vs world 1")
+                  f"{name}: {K7_BLOCKS} unfused offset blocks vs world 1")
+            runs = {"fused": lambda: sharded.shardmap_window_rmse(mesh1, sq_fn, X, Ui, H),
+                    "unfused": lambda: sharded.shardmap_window_rmse(
+                        mesh1, unfused(final_fn), X, Ui, H)}
+            close(world1, float(runs["unfused"]()), TOL["sharded_rmse"][0],
+                  f"{name}: fused vs unfused composition")
+            bits = {runs["fused"]().cpu().numpy().tobytes() for _ in range(10)}
+            if len(bits) != 1:
+                fail(f"{name}: ten calls gave {len(bits)} different RMSEs")
             want = float(metrics.rmse(X[H:], plain(X, Ui)))
             close(world1, want, TOL["rmse"][0], f"{name}: world-1 RMSE vs the plain versions'")
             err[name] = abs(world1 - want)
-            ms[name] = cuda_event_time(
-                lambda: sharded.shardmap_window_rmse(mesh1, final_fn, X, Ui, H), iters=20)
-            wrapper_ms[name] = cuda_event_time(lambda: wrapper(mesh1, X, Ui), iters=20)
+            t = {k: [] for k in runs}
+            for _ in range(REPEATS):              # in turns: fused, unfused, fused, ...
+                for k, fn in runs.items():
+                    t[k].append(cuda_event_time(fn, iters=CALLS))
+            composition[name] = {k: dict(min=min(v), median=sorted(v)[REPEATS // 2], max=max(v))
+                                 for k, v in t.items()}
+            ms[name] = composition[name]["fused"]["median"]
+            wrapper_ms[name] = cuda_event_time(lambda: wrapper(mesh1, X, Ui), iters=CALLS)
             plain_ms[name] = cuda_event_time(lambda: metrics.rmse(X[H:], plain(X, Ui)), iters=2,
                                              warmup=0)
-            bounds[name] = (large[kname]["bound_ms"], large[kname]["bound_by"])
-            shapes[name] = large[kname]["shape"] + f", world 1 ({K7_BACKEND})"
-            print(f"{name}: {ms[name]:.4f} ms with the all-reduce; the bare kernel "
-                  f"{large[kname]['ms']:.4f} ms; the wrapper, which reads the coefficients "
-                  f"back to the host on every call, {wrapper_ms[name]:.4f} ms")
+            bounds[name] = (large[fname]["bound_ms"], large[fname]["bound_by"])
+            shapes[name] = large[fname]["shape"] + f", world 1 ({K7_BACKEND})"
+            c = composition[name]
+            print(f"{name}: composition (kernel, all-reduce, sqrt) fused min {c['fused']['min']:.4f}"
+                  f" / median {c['fused']['median']:.4f} / max {c['fused']['max']:.4f} ms, "
+                  f"unfused {c['unfused']['min']:.4f} / {c['unfused']['median']:.4f} / "
+                  f"{c['unfused']['max']:.4f} ms ({REPEATS} repeats of {CALLS} calls, in turns); "
+                  f"the bare fused kernel {large[fname]['ms']:.4f} ms; the wrapper, which reads "
+                  f"the coefficients back on every call, {wrapper_ms[name]:.4f} ms")
+        name, (_, _, _, sq_fn, _, X, Ui) = next(iter(k7.items()))
+        busy = device_busy_share(lambda: sharded.shardmap_window_rmse(mesh1, sq_fn, X, Ui, H))
+        composition[name]["device_busy_share"] = busy
     finally:
         dist.destroy_process_group()
 
@@ -713,6 +892,8 @@ def main() -> None:
     ceiling_large = {"window_eval": row_ceiling(n_big, "euler", act_ops),
                      "window_eval_wrench": row_ceiling(n_big, "euler"),
                      "window_eval_quat": 1e3 * n_big / mix["euler"]}
+    for name, (*_, endpoint) in FUSED.items():      # the fused forms do the same steps
+        ceiling[name], ceiling_large[name] = ceiling[endpoint], ceiling_large[endpoint]
     for name, (kname, *_) in k7.items():
         ceiling[name] = ceiling_large[kname]
     for name in ceiling:      # the probes price operations; bytes keep their bound
@@ -728,6 +909,7 @@ def main() -> None:
     # 9. results ------------------------------------------------------------------
     src = "bluerov2_dynamics_tpu_torch/csrc/"
     k7_src = "bluerov2_dynamics_tpu/parallel/sharded.py:117 _shardmap_window_rmse"
+    sum_src = "with the per-shard jnp.sum(d * d) of bluerov2_dynamics_tpu/parallel/sharded.py:179"
     kernels_meta = [
         ("rollout_final", "rollout.cu",
          "bluerov2_dynamics_tpu/ops/pallas_rollout.py:208 make_rollout_final_pallas"),
@@ -744,6 +926,12 @@ def main() -> None:
          "bluerov2_dynamics_tpu/ops/pallas_quat.py:143 _make_quat_window_kernel"),
         ("rollout_final_quat", "quat.cu",
          "bluerov2_dynamics_tpu/ops/pallas_quat.py:170 make_rollout_final_pallas_quat"),
+        ("window_sq", "window_eval.cu",
+         "bluerov2_dynamics_tpu/ops/pallas_eval.py:36 _make_thruster_window_kernel " + sum_src),
+        ("window_sq_wrench", "window_eval.cu",
+         "bluerov2_dynamics_tpu/ops/pallas_eval.py:250 _make_wrench_window_kernel " + sum_src),
+        ("window_sq_quat", "quat.cu",
+         "bluerov2_dynamics_tpu/ops/pallas_quat.py:143 _make_quat_window_kernel " + sum_src),
         ("sharded_window_eval", "window_eval.cu", k7_src),
         ("sharded_window_eval_wrench", "window_eval.cu", k7_src),
         ("sharded_window_eval_quat", "quat.cu", k7_src),
@@ -755,6 +943,22 @@ def main() -> None:
     ]
     counts = {**launches, **k8_launches,
               **{name: k7_launches[v[0]] for name, v in k7.items()}}
+    # the redesigned kernels' resources: K2 at the apps' starts (its K7 body at
+    # the full recording's); K4's and K5's fused forms keep one thread a start
+    app_n = N_REC - H
+    redesigned.update({
+        "window_eval": dict(redesigned[f"window_eval {app_n}"], pr="PR 5",
+                            large=redesigned[f"window_eval {N_LARGE}"]),
+        "window_sq": dict(redesigned[f"window_sq {app_n}"], pr="PR 5",
+                          large=redesigned[f"window_sq {N_LARGE}"]),
+        "sharded_window_eval": dict(redesigned[f"window_sq {N_LARGE}"], pr="PR 5"),
+    })
+    for name, key in (("sharded_window_eval_wrench", "25window_eval_wrench_kernelILi0ELb1EE"),
+                      ("sharded_window_eval_quat", "23window_eval_quat_kernelILi0ELb1ELb1EE")):
+        res = [r for fn, r in _build.ptxas_resources(logs["window_eval" if "wrench" in name
+                                                            else "quat"]).items() if key in fn]
+        redesigned[name] = dict(regs=res[0]["regs"] if len(res) == 1 else None,
+                                blocks_per_sm=None, lanes=1, pr="PR 5")
     kernels = []
     for name, source, replaces in kernels_meta:
         rtol, atol = TOL["rmse"] if name in k7 else TOL[name]
@@ -770,12 +974,20 @@ def main() -> None:
             entry.update(k8_meta[name])
         if name in wrapper_ms:
             rtol, atol = TOL["sharded_rmse"]
-            entry.update(wrapper_ms=wrapper_ms[name],
+            entry.update(wrapper_ms=wrapper_ms[name], composition_ms=composition[name],
+                         launches_unfused_offset_blocks=k7_launches[k7[name][1]],
                          max_abs_err_vs_unsharded_kernel=k7_unsharded_err[name],
                          tol_vs_unsharded_kernel=dict(rtol=rtol, atol=atol))
+        if name in FUSED:
+            entry["evaluator_ms"] = evaluator_ms[FUSED[name][0]]
+        if name in event_ms:
+            entry["event_ms"] = event_ms[name]
         if name in redesigned:
-            entry.update(regs=redesigned[name]["regs"],
-                         blocks_per_sm=redesigned[name]["blocks_per_sm"], redesigned="PR 4")
+            r = redesigned[name]
+            entry.update(regs=r["regs"], blocks_per_sm=r["blocks_per_sm"],
+                         redesigned=r.get("pr", "PR 4"))
+            if "lanes" in r and name not in ("rollout_final", "batched_rollout"):
+                entry.update(lanes=r["lanes"], **({"large_plan": r["large"]} if "large" in r else {}))
         if name == "batched_rollout":
             entry["checked"] = (f"{B_ROLL - n_near} of {B_ROLL} trajectories; {n_near} near the "
                                 f"gimbal singularity left out (max|kernel - plain| {near_diff:.3e})")

@@ -172,3 +172,49 @@ def test_kernel_at_edge_shapes_on_card(T, B, cuda, rng):
     assert _build.launches["rollout_final"] == before + 1
     want = cr.rollout_rows_plain(p, tau, x0, 0.02, "rk4")
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+# --- the kernels' constant structs ------------------------------------------------
+
+def _per_field(t):
+    return [float(v) for v in t.detach().cpu().reshape(-1).tolist()]
+
+
+def _row_consts_per_field(p, dt):
+    """The structs as the port built them before, one read-back a field."""
+    added, (xb, yb, zb) = _per_field(p.added), _per_field(p.cb)
+    W, Bf = float(p.W), float(p.B)
+    k = cr.RowConsts()
+    for name, t in (("mdiag", p.mdiag), ("minv", p.minv), ("gyro", p.gyro), ("d_lin", p.d_lin),
+                    ("d_quad", p.d_quad), ("cur", p.current.expand(3))):
+        getattr(k, name)[:] = _per_field(t)
+    k.yz, k.zx, k.xy = added[1] - added[2], added[2] - added[0], added[0] - added[1]
+    k.WB, k.xbB, k.ybB, k.zbB = W - Bf, xb * Bf, yb * Bf, zb * Bf
+    k.dt, k.half_dt, k.sixth_dt = dt, 0.5 * dt, dt / 6.0
+    return k
+
+
+def _thruster_consts_per_field(cfg, lag):
+    c = cr.ThrusterConsts()
+    c.curve[:], c.Ad[:], c.Bd[:] = _per_field(cfg.curve), _per_field(lag.Ad), _per_field(lag.Bd)
+    c.c[:], c.Wm[:] = _per_field(lag.c), _per_field(cfg.wrench_map)
+    return c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("current", [(0.0, 0.0, 0.0), (0.2, -0.15, 0.05)])
+def test_constant_structs_are_read_back_in_one_copy(current, dtype, monkeypatch):
+    """``row_consts`` and ``thruster_consts`` give the per-field reads'
+    structs byte for byte, each from one ``.cpu()`` copy."""
+    p = tparams.fossen_params(current=current, dtype=dtype, device="cpu")
+    cfg = tparams.thruster_config(dtype=dtype, device="cpu")
+    lag = tparams.lag_params(0.02, dtype=dtype, device="cpu")
+    want_k, want_c = bytes(_row_consts_per_field(p, 0.02)), bytes(_thruster_consts_per_field(cfg, lag))
+    copies = []
+    cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **kw: copies.append(1) or cpu(t, *a, **kw))
+    got_k = bytes(cr.row_consts(p, 0.02))
+    assert len(copies) == 1
+    got_c = bytes(cr.thruster_consts(cfg, lag))
+    assert len(copies) == 2
+    assert got_k == want_k and got_c == want_c

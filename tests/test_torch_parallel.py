@@ -283,6 +283,22 @@ def test_world1_offset_blocks_sum_to_the_world1_result(kind, mesh1):
                                float(wrapper(mesh1, X, U)), rtol=1e-5)
 
 
+@pytest.mark.parametrize("kind", ["thruster", "wrench", "quat"])
+def test_world1_fused_composition_equals_the_unfused_one(kind, mesh1):
+    """K7 with the fused per-rank body (one call returning the block's
+    squared-error sum) equals K7 with the unfused body (endpoints, then
+    ``torch.sum``) on CPU tensors, where both are the plain versions."""
+    p, cfg, lag = _cpu_consts()
+    wrapper, final_fn, X, U = _window_fns(p, cfg, lag)[kind]
+    unfused = sharded.shardmap_window_rmse(
+        mesh1, lambda Xb, Ub: sharded.window_block_sq(final_fn, Xb, Ub, H, 0, Xb.shape[0] - H),
+        X, U, H)
+    before = dict(_build.launches)
+    fused = wrapper(mesh1, X, U)
+    assert _build.launches == before
+    assert float(fused) == float(unfused)
+
+
 def test_world1_step_loops_equal_the_single_device_metric(mesh1, data):
     lin = trc.linear_step(data)
     X, U = torch.from_numpy(data["X_lin"]), torch.from_numpy(data["U_lin"])
@@ -332,12 +348,12 @@ def cuda():
 @pytest.mark.parametrize("kind", ["thruster", "wrench", "quat"])
 def test_world1_window_kernels_on_card(kind, cuda, mesh1):
     """gloo all-reduces the CUDA partial sum through the host; one launch
-    of the per-rank kernel, equal to the unsharded kernel's RMSE."""
+    of the fused per-rank kernel, equal to the unsharded kernel's RMSE."""
     p, cfg, lag = (c.to(cuda) for c in _cpu_consts())
     wrapper, final_fn, X, U = _window_fns(p, cfg, lag)[kind]
     X, U = X.to(cuda), U.to(cuda)
-    name = {"thruster": "window_eval", "wrench": "window_eval_wrench",
-            "quat": "window_eval_quat"}[kind]
+    name = {"thruster": "window_sq", "wrench": "window_sq_wrench",
+            "quat": "window_sq_quat"}[kind]
     before = _build.launches[name]
     got = float(wrapper(mesh1, X, U))
     assert _build.launches[name] == before + 1
