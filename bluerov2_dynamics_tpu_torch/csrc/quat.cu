@@ -20,44 +20,39 @@
 // and 2 rsqrt); the traffic is the states in and out plus the small wrench
 // rows.  K5 at the apps' shape (9,065 starts, H=100) fills fewer than one
 // wave of 132 SMs, so one thread's chain of 100 dependent steps (latency)
-// sets its time, as in K2.  The design: one thread per start with its 13
-// states in registers for all steps.  K5 reads its 52-byte state rows
-// element by element and TAU[s + t] as three float2 (neighbouring starts
-// read neighbouring rows, reused from L1/L2 by the H starts that need
-// them); the fused form reduces the squared errors in the kernel.  K6
-// stages the shared TAU through shared memory in chunks, where every
-// thread of the block reads the same word (a broadcast).
+// sets its time, as in K2, and each step of the parent's kernel waited on
+// the global load of its wrench row.  The design: one thread per start
+// with its 13 states in registers for all steps; K5 reads its 52-byte
+// state rows element by element, and each block stages the TAU rows of
+// its starts in shared memory first (window_rows.cuh), so a step reads
+// its row from there; the fused form reduces the squared errors in the
+// kernel.  A start split over a warp pair (the quaternion on one warp,
+// the body velocities on the other, as K4 does) measured slower than the
+// staged one-thread form at every start count from 9,065 to 44,800
+// (PERF.md).  K6 stages the shared TAU through shared memory in
+// chunks, where every thread of the block reads the same word (a
+// broadcast).
 #include <cstdint>
 
 #include "fossen_rows.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
+// K5's block (mirrored by ops/cuda_quat.py::QUAT_CONSTS), and the steps
+// of TAU a block stages at a time (4.6 KB of rows).
 constexpr int kWindowThreads = 64;
+constexpr int kWindowTauChunk = 128;
 constexpr int kRollThreads = 128;
 constexpr int kTauChunk = 256;  // steps of TAU staged per pass (6 KB)
 
 template <int METHOD, bool RENORM, bool SQ>
-__global__ void window_eval_quat_kernel(RowConsts k, const float* __restrict__ X,
-                                        const float* __restrict__ TAU,
-                                        float* __restrict__ out, int n_start, int H,
-                                        SqScratch sq) {
-  const int own = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = own < n_start;
-  if (!SQ && !live) return;
-  const int s = live ? own : n_start - 1;   // fused: a dead thread shadows the last start
-  float x[13];
-#pragma unroll
-  for (int i = 0; i < 13; ++i) x[i] = X[(int64_t)s * 13 + i];
-  for (int t = 0; t < H; ++t) {
-    // a 24-byte row is 8-byte aligned when the base is (the wrapper checks)
-    const float2* row = reinterpret_cast<const float2*>(TAU + (int64_t)(s + t) * 6);
-    const float2 a = row[0], b = row[1], d = row[2];
-    const float tau[6] = {a.x, a.y, b.x, b.y, d.x, d.y};
-    step_quat_rows<METHOD, RENORM>(k, x, tau);
-  }
-  if constexpr (SQ) grid_sum<kWindowThreads>(endpoint_sq<13>(x, X, s, H, live), sq);
-  else write_endpoint<13>(x, out, s);
+__global__ void window_staged_quat_kernel(RowConsts k, const float* __restrict__ X,
+                                          const float* __restrict__ TAU,
+                                          float* __restrict__ out, int n_start, int H,
+                                          SqScratch sq) {
+  window_staged_body<13, METHOD, RENORM, SQ, kWindowThreads, kWindowTauChunk>(k, X, TAU, out,
+                                                                              n_start, H, sq);
 }
 
 template <int METHOD, bool RENORM>
@@ -86,25 +81,28 @@ __global__ void rollout_quat_kernel(RowConsts k, const float* __restrict__ TAU,
   }
 }
 
-template <int METHOD, bool RENORM, bool SQ>
-void launch_window(const RowConsts& k, const float* X, const float* TAU, float* out,
-                   SqScratch sq, int n_start, int H, cudaStream_t s) {
-  const dim3 grid((n_start + kWindowThreads - 1) / kWindowThreads);
-  window_eval_quat_kernel<METHOD, RENORM, SQ><<<grid, kWindowThreads, 0, s>>>(k, X, TAU, out,
-                                                                             n_start, H, sq);
+int grid_of(int n_start) { return (n_start + kWindowThreads - 1) / kWindowThreads; }
+
+using WindowKernel = void (*)(RowConsts, const float*, const float*, float*, int, int, SqScratch);
+
+WindowKernel pick_window(int method, int renormalize, bool sq) {
+  static const WindowKernel table[2][2][2] = {
+      {{window_staged_quat_kernel<0, false, false>, window_staged_quat_kernel<0, false, true>},
+       {window_staged_quat_kernel<0, true, false>, window_staged_quat_kernel<0, true, true>}},
+      {{window_staged_quat_kernel<1, false, false>, window_staged_quat_kernel<1, false, true>},
+       {window_staged_quat_kernel<1, true, false>, window_staged_quat_kernel<1, true, true>}}};
+  return table[method != 0][renormalize != 0][sq];
 }
 
-template <bool SQ>
-void launch_window_any(const RowConsts& k, const float* X, const float* TAU, float* out,
-                       SqScratch sq, int n_start, int H, int method, int renormalize,
-                       cudaStream_t s) {
-  if (method == 0) {
-    if (renormalize) launch_window<0, true, SQ>(k, X, TAU, out, sq, n_start, H, s);
-    else launch_window<0, false, SQ>(k, X, TAU, out, sq, n_start, H, s);
-  } else {
-    if (renormalize) launch_window<1, true, SQ>(k, X, TAU, out, sq, n_start, H, s);
-    else launch_window<1, false, SQ>(k, X, TAU, out, sq, n_start, H, s);
-  }
+int launch_window(const void* row_consts, const float* X, const float* TAU, float* out,
+                  const SqScratch* sq, int n_partials, int n_start, int H, int method,
+                  int renormalize, void* stream) {
+  if (sq && grid_of(n_start) > n_partials) return static_cast<int>(cudaErrorInvalidValue);
+  pick_window(method, renormalize, sq != nullptr)<<<grid_of(n_start), kWindowThreads, 0,
+                                                    static_cast<cudaStream_t>(stream)>>>(
+      *static_cast<const RowConsts*>(row_consts), X, TAU, out, n_start, H,
+      sq ? *sq : SqScratch{nullptr, nullptr, nullptr});
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int METHOD, bool RENORM>
@@ -122,23 +120,34 @@ extern "C" {
 int brov2_window_eval_quat(const void* row_consts, const float* X, const float* TAU,
                            float* out, int n_start, int H, int method, int renormalize,
                            void* stream) {
-  launch_window_any<false>(*static_cast<const RowConsts*>(row_consts), X, TAU, out,
-                           SqScratch{nullptr, nullptr, nullptr}, n_start, H, method, renormalize,
-                           static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_window(row_consts, X, TAU, out, nullptr, 0, n_start, H, method, renormalize,
+                       stream);
 }
 
 // K5 fused: the sum of the squared endpoint errors into *sq.  `partials`
-// holds n_partials floats (at least the grid); `ticket` is zero.
+// holds n_partials floats (at least the plan's grid); `ticket` is zero.
 int brov2_window_sq_quat(const void* row_consts, const float* X, const float* TAU, float* sq,
                          float* partials, int n_partials, unsigned* ticket, int n_start, int H,
                          int method, int renormalize, void* stream) {
-  if ((n_start + kWindowThreads - 1) / kWindowThreads > n_partials)
-    return static_cast<int>(cudaErrorInvalidValue);
-  launch_window_any<true>(*static_cast<const RowConsts*>(row_consts), X, TAU, nullptr,
-                          SqScratch{sq, partials, ticket}, n_start, H, method, renormalize,
-                          static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const SqScratch scratch{sq, partials, ticket};
+  return launch_window(row_consts, X, TAU, nullptr, &scratch, n_partials, n_start, H, method,
+                       renormalize, stream);
+}
+
+// K5's plan for n_start starts and its endpoint (sq = 0) or fused kernel:
+// plan[0..4] = warps a start, block, blocks, resident blocks per SM,
+// static shared bytes.
+int brov2_window_quat_occupancy(int method, int renormalize, int sq, int n_start, int* plan) {
+  const WindowKernel fn = pick_window(method, renormalize, sq != 0);
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  plan[0] = 1;
+  plan[1] = kWindowThreads;
+  plan[2] = grid_of(n_start);
+  plan[4] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(plan + 3, fn, kWindowThreads, 0));
 }
 
 int brov2_rollout_final_quat(const void* row_consts, const float* TAU, const float* x0,

@@ -28,15 +28,38 @@
 // A start split over 2, 4 or 8 lanes of a warp (each lane a share of the
 // thrusters and of the three sincosf, shuffles handing them round) issued
 // more work than it hid and measured slower at 9,065 and 44,800 starts
-// (PERF.md, PR 5), so one thread runs one start.
+// (PERF.md), so K2 runs one thread a start.
+//
+// K4 has no actuation to share; what it can divide is the row step
+// itself, and what holds a lone warp back is also its wait on each step's
+// wrench row.  Up to kWrenchSplitStartsPerSm starts an SM its launch plan
+// puts a start on a warp pair (window_rows.cuh): the kinematic warp steps
+// the angles (the three sincosf, R, the gimbal clamp and its two
+// divisions), the dynamic warp the position and body velocities, and the
+// two exchange R and p, q, r through shared memory at every RHS
+// evaluation; the pairs' warps land on the schedulers that one thread a
+// start leaves idle.  Above the threshold the schedulers are busy already
+// and the exchange only adds work, so K4 runs one thread a start there,
+// with each block's wrench rows staged in shared memory.  Both the
+// threshold and the forms are by measurement (PERF.md).
 #include <cstdint>
 
 #include "fossen_rows.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
-// Threads a block of K2 and K4, mirrored by ops/cuda_eval.py::window_plan.
+// Threads a block of K2 and of K4's one-thread form, mirrored by
+// ops/cuda_eval.py::window_plan and WRENCH_CONSTS.
 constexpr int kThreads = 64;
+// K4's plan, mirrored by ops/cuda_eval.py::WRENCH_CONSTS: warp pairs a
+// block of the pair form; the most starts an SM for which a start goes on
+// a warp pair (3 blocks of the pair form an SM: with a 4th the staged
+// one-thread form measured faster); the steps of TAU a block of the
+// one-thread form stages at a time (4.6 KB of rows).
+constexpr int kWrenchPairs = 2;
+constexpr int kWrenchSplitStartsPerSm = 192;
+constexpr int kWrenchTauChunk = 128;
 
 // K2.  The fused form's threads past the end shadow the last start, so
 // that every thread reaches the block sum, and add nothing; the endpoint
@@ -74,31 +97,45 @@ __global__ void window_eval_kernel(RowConsts k, ThrusterConsts c,
   else write_endpoint<12>(x, out, s);
 }
 
-// K4, with the same two epilogues.
+// K4's warp-pair and staged one-thread forms, with the same two epilogues.
 template <int METHOD, bool SQ>
-__global__ void window_eval_wrench_kernel(RowConsts k, const float* __restrict__ X,
-                                          const float* __restrict__ TAU,
-                                          float* __restrict__ out, int n_start, int H,
-                                          SqScratch sq) {
-  const int own = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = own < n_start;
-  if (!SQ && !live) return;
-  const int s = live ? own : n_start - 1;
-  float x[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) x[i] = X[(int64_t)s * 12 + i];
-  for (int t = 0; t < H; ++t) {
-    // a 24-byte row is 8-byte aligned when the base is (the wrapper checks)
-    const float2* row = reinterpret_cast<const float2*>(TAU + (int64_t)(s + t) * 6);
-    const float2 a = row[0], b = row[1], d = row[2];
-    const float tau[6] = {a.x, a.y, b.x, b.y, d.x, d.y};
-    step_rows<METHOD>(k, x, tau);
-  }
-  if constexpr (SQ) grid_sum<kThreads>(endpoint_sq<12>(x, X, s, H, live), sq);
-  else write_endpoint<12>(x, out, s);
+__global__ void __launch_bounds__(64 * kWrenchPairs)
+    window_pair_wrench_kernel(RowConsts k, const float* __restrict__ X,
+                              const float* __restrict__ TAU, float* __restrict__ out, int n_start,
+                              int H, SqScratch sq) {
+  window_pair_body<METHOD, SQ, kWrenchPairs>(k, X, TAU, out, n_start, H, sq);
+}
+
+template <int METHOD, bool SQ>
+__global__ void window_staged_wrench_kernel(RowConsts k, const float* __restrict__ X,
+                                            const float* __restrict__ TAU,
+                                            float* __restrict__ out, int n_start, int H,
+                                            SqScratch sq) {
+  window_staged_body<12, METHOD, false, SQ, kThreads, kWrenchTauChunk>(k, X, TAU, out, n_start,
+                                                                       H, sq);
 }
 
 int grid_of(int n_start) { return (n_start + kThreads - 1) / kThreads; }
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// K4's launch plan for n_start starts: warps a start, block, grid.
+struct Plan {
+  int warps, block, n_blocks;
+};
+
+Plan wrench_plan(int n_start) {
+  if ((int64_t)n_start <= (int64_t)kWrenchSplitStartsPerSm * sm_count()) {
+    constexpr int spb = 32 * kWrenchPairs;
+    return {2, 64 * kWrenchPairs, (n_start + spb - 1) / spb};
+  }
+  return {1, kThreads, grid_of(n_start)};
+}
 
 using ThrusterKernel = void (*)(RowConsts, ThrusterConsts, const float*, const float*, float*,
                                 int, int, SqScratch);
@@ -125,13 +162,24 @@ int launch_thruster(const void* row_consts, const void* thr_consts, const float*
 
 using WrenchKernel = void (*)(RowConsts, const float*, const float*, float*, int, int, SqScratch);
 
+template <int METHOD, bool SQ>
+WrenchKernel wrench_kernel(const Plan& plan) {
+  if (plan.warps == 2) return window_pair_wrench_kernel<METHOD, SQ>;
+  return window_staged_wrench_kernel<METHOD, SQ>;
+}
+
+WrenchKernel pick_wrench(const Plan& plan, int method, bool sq) {
+  if (method == 0) return sq ? wrench_kernel<0, true>(plan) : wrench_kernel<0, false>(plan);
+  return sq ? wrench_kernel<1, true>(plan) : wrench_kernel<1, false>(plan);
+}
+
 int launch_wrench(const void* row_consts, const float* X, const float* TAU, float* out,
-                  int n_start, int H, int method, const SqScratch* sq, void* stream) {
-  static const WrenchKernel table[2][2] = {
-      {window_eval_wrench_kernel<0, false>, window_eval_wrench_kernel<0, true>},
-      {window_eval_wrench_kernel<1, false>, window_eval_wrench_kernel<1, true>}};
-  table[method != 0][sq != nullptr]<<<grid_of(n_start), kThreads, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
+                  int n_start, int H, int method, const SqScratch* sq, int n_partials,
+                  void* stream) {
+  const Plan plan = wrench_plan(n_start);
+  if (sq && plan.n_blocks > n_partials) return static_cast<int>(cudaErrorInvalidValue);
+  pick_wrench(plan, method, sq != nullptr)<<<plan.n_blocks, plan.block, 0,
+                                             static_cast<cudaStream_t>(stream)>>>(
       *static_cast<const RowConsts*>(row_consts), X, TAU, out, n_start, H,
       sq ? *sq : SqScratch{nullptr, nullptr, nullptr});
   return static_cast<int>(cudaGetLastError());
@@ -172,16 +220,33 @@ int brov2_window_occupancy(int method, int use_lag, int sq, int* block, int* blo
 // TAU must be 8-byte aligned with rows of 6 floats (the wrapper checks).
 int brov2_window_eval_wrench(const void* row_consts, const float* X, const float* TAU,
                              float* out, int n_start, int H, int method, void* stream) {
-  return launch_wrench(row_consts, X, TAU, out, n_start, H, method, nullptr, stream);
+  return launch_wrench(row_consts, X, TAU, out, n_start, H, method, nullptr, 0, stream);
 }
 
-// K4 fused, as brov2_window_sq.
+// K4 fused, as brov2_window_sq; `partials` holds at least the plan's grid.
 int brov2_window_sq_wrench(const void* row_consts, const float* X, const float* TAU, float* sq,
                            float* partials, int n_partials, unsigned* ticket, int n_start, int H,
                            int method, void* stream) {
-  if (grid_of(n_start) > n_partials) return static_cast<int>(cudaErrorInvalidValue);
   const SqScratch scratch{sq, partials, ticket};
-  return launch_wrench(row_consts, X, TAU, nullptr, n_start, H, method, &scratch, stream);
+  return launch_wrench(row_consts, X, TAU, nullptr, n_start, H, method, &scratch, n_partials,
+                       stream);
+}
+
+// K4's plan for n_start starts and its endpoint (sq = 0) or fused kernel:
+// plan[0..4] = warps a start, block, blocks, resident blocks per SM,
+// static shared bytes.
+int brov2_window_wrench_occupancy(int method, int sq, int n_start, int* plan) {
+  const Plan p = wrench_plan(n_start);
+  const WrenchKernel fn = pick_wrench(p, method, sq != 0);
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  plan[0] = p.warps;
+  plan[1] = p.block;
+  plan[2] = p.n_blocks;
+  plan[4] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(plan + 3, fn, p.block, 0));
 }
 
 const char* brov2_error_string(int code) {

@@ -44,6 +44,7 @@ _SIGNATURES = {
         "brov2_window_occupancy": ([_I, _I, _I, _P, _P], _I),
         "brov2_window_eval_wrench": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
         "brov2_window_sq_wrench": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
+        "brov2_window_wrench_occupancy": ([_I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
     "batched_rollout": {
@@ -55,6 +56,7 @@ _SIGNATURES = {
         "brov2_window_eval_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "brov2_window_sq_quat": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
         "brov2_rollout_final_quat": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "brov2_window_quat_occupancy": ([_I, _I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
     "probes": {

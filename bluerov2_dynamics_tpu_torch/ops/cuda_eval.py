@@ -22,13 +22,16 @@ evaluator call is one launch and a sqrt, and K7's per-rank body
 version (``window_sq_plain*``) is the endpoints, then ``torch.sum(d * d)``
 in float32, the JAX package's per-shard body.
 
-``csrc/window_eval.cu`` holds K2 and K4: one thread per start
+``csrc/window_eval.cu`` holds K2 and K4.  K2 runs one thread per start
 (:func:`window_plan`; splitting a start over lanes of a warp measured
-slower), the state (and lag) in registers, inputs read directly
+slower), the state and lag in registers, inputs read directly
 (neighbouring starts read neighbouring rows; no pre-shifted copy of the
-input).  ``csrc/batched_rollout.cu`` holds K3: one thread per trajectory,
-each step's commands loaded into registers one step ahead
-(:func:`stage_plan`).  The plain versions run all starts at once as
+input).  K4 splits a start's row step over a pair of warps up to a
+threshold of starts an SM, and above it runs one thread a start with each
+block's wrench rows staged in shared memory (:func:`wrench_plan`,
+``csrc/window_rows.cuh``).  ``csrc/batched_rollout.cu`` holds K3: one
+thread per trajectory, each step's commands loaded into registers one
+step ahead (:func:`stage_plan`).  The plain versions run all starts at once as
 ``(n_start,)`` rows with the same step order and association as the
 kernels.
 
@@ -39,6 +42,7 @@ version; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -187,6 +191,58 @@ def window_plan(n_start: int, H: int) -> dict:
     start and add nothing."""
     return dict(lanes=1, block=WINDOW_THREADS, n_blocks=-(-n_start // WINDOW_THREADS),
                 n_steps=H)
+
+
+@dataclass(frozen=True)
+class WindowConsts:
+    """The launch constants of a wrench-input window kernel (K4 in
+    ``csrc/window_eval.cu``, K5 in ``csrc/quat.cu``), named as there."""
+
+    threads: int                 # kThreads / kWindowThreads: the one-thread form's block
+    tau_chunk: int               # kWrenchTauChunk / kWindowTauChunk: steps of TAU staged at a time
+    pairs: int = 0               # kWrenchPairs: warp pairs a block of the pair form (0: none)
+    split_starts_per_sm: int = 0  # kWrenchSplitStartsPerSm: the most starts an SM on a pair
+
+    def split_threshold(self, sms: int) -> int:
+        """The most starts for which the plan puts a start on a warp pair."""
+        return self.split_starts_per_sm * sms if self.pairs else 0
+
+
+# csrc/window_eval.cu's K4 constants (by measurement, PERF.md)
+WRENCH_CONSTS = WindowConsts(threads=WINDOW_THREADS, tau_chunk=128, pairs=2,
+                             split_starts_per_sm=192)
+EXCHANGE_BYTES = 2 * 4 * 32 * 16   # a pair's buffers: 2 parities x 4 float4s x 32 lanes
+TAU_ROW_BYTES = 24                  # one row of TAU, 6 float32
+
+
+def split_plan(c: WindowConsts, n_start: int, H: int, sms: int) -> dict:
+    """The launch plan of a wrench-input window kernel for ``n_start``
+    starts of ``H`` steps on a card of ``sms`` SMs: warps a start (2 up to
+    ``c.split_threshold(sms)`` starts, else 1), starts a block, block
+    size, grid, and the static shared bytes of its endpoint form (the
+    fused form adds ``grid_sum``'s few words).  In the pair form lane
+    ``l`` of both warps of pair ``j`` of block ``b`` runs start ``(b *
+    pairs + j) * 32 + l``; in the one-thread form, which stages the
+    block's TAU rows, thread ``t`` of block ``b`` runs start ``b *
+    threads + t``.  Lanes past the end shadow the last start and write and
+    add nothing."""
+    if n_start <= c.split_threshold(sms):
+        warps, spb, shared = 2, 32 * c.pairs, c.pairs * EXCHANGE_BYTES
+    else:
+        warps, spb = 1, c.threads
+        shared = (c.threads + c.tau_chunk - 1) * TAU_ROW_BYTES
+    return dict(warps=warps, starts_per_block=spb, block=warps * spb,
+                n_blocks=-(-n_start // spb), shared_bytes=shared, n_steps=H)
+
+
+def wrench_plan(n_start: int, H: int, sms: int) -> dict:
+    """K4's launch plan (:func:`split_plan` of ``WRENCH_CONSTS``)."""
+    return split_plan(WRENCH_CONSTS, n_start, H, sms)
+
+
+def sm_count(device) -> int:
+    """The SMs of the CUDA ``device``, as the kernels' launchers read them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_window_eval(rc: RowConsts, tc: ThrusterConsts, X, U, H: int,
@@ -463,7 +519,8 @@ def launch_window_sq_wrench(rc: RowConsts, X, TAU, H: int, method: str):
     _check_wrench_window(X, TAU)
     lib = _build.load_library("window_eval")
     with torch.cuda.device(X.device):
-        sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
+        n_blocks = wrench_plan(n_start, H, sm_count(X.device))["n_blocks"]
+        sq, partials, ticket, stream = sq_scratch(X, n_blocks)
         code = lib.brov2_window_sq_wrench(
             ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), sq.data_ptr(),
             partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
@@ -471,6 +528,26 @@ def launch_window_sq_wrench(rc: RowConsts, X, TAU, H: int, method: str):
     _build.check(lib, code, "window_sq_wrench")
     _build.launches["window_sq_wrench"] += 1
     return sq
+
+
+PLAN_FIELDS = ("warps", "block", "n_blocks", "blocks_per_sm", "shared_bytes")
+
+
+def read_plan(lib, fn: str, *args) -> dict:
+    """The plan a window kernel's occupancy query ``fn(*args, int* plan)``
+    reports: :data:`PLAN_FIELDS`."""
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    _build.check(lib, getattr(lib, fn)(*args, plan), fn)
+    return dict(zip(PLAN_FIELDS, plan))
+
+
+def wrench_occupancy(n_start: int, method: str = "euler", fused: bool = False) -> dict:
+    """K4's plan for ``n_start`` starts as its launcher makes it on the
+    current card, with the resident blocks per SM and static shared bytes
+    of the kernel it picks (the endpoint or ``fused`` form)."""
+    check_method(method)
+    return read_plan(_build.load_library("window_eval"), "brov2_window_wrench_occupancy",
+                     METHODS[method], int(fused), n_start)
 
 
 def make_endpoint_final_cuda_wrench(p: FossenParams, dt: float, H: int,

@@ -379,19 +379,46 @@ def step_loop(text: str, key: str) -> dict:
     skips on the common path: each region jumped over by a predicated
     forward branch, shorter than ``SLOW_REGION``, that holds a loop (the
     Payne-Hanek reduction) or a CALL (the IEEE division's slow path)."""
-    funcs = [insns for name, insns in _functions(text).items() if key in name]
-    if len(funcs) != 1:
-        raise ValueError(f"{len(funcs)} functions match {key!r}")
-    insns = funcs[0]
-
-    def ffma(lo, hi):
-        return sum(1 for a, op, _, _ in insns if lo <= a <= hi and op.startswith("FFMA"))
-
+    insns = _one_function(text, key)
     backs = _loops(insns)
     if not backs:
         raise ValueError(f"{key}: no loop")
-    most = max(ffma(t, a) for t, a in backs)
-    lo, hi = min((b for b in backs if ffma(*b) >= 0.9 * most), key=lambda b: b[1] - b[0])
+    most = max(_ffma(insns, t, a) for t, a in backs)
+    lo, hi = min((b for b in backs if _ffma(insns, *b) >= 0.9 * most), key=lambda b: b[1] - b[0])
+    return _loop_counts(insns, lo, hi)
+
+
+def step_loops(text: str, key: str) -> list:
+    """The step loops of the one function whose mangled name holds ``key``,
+    in address order, each as :func:`step_loop` gives it: every loop that
+    holds at least 10% of the function's FFMA and no smaller such loop.  A
+    warp-pair window kernel has two, one a warp (the kinematic warp's holds
+    the MUFU: the divisions' reciprocals, the rsqrt); a chunk loop around
+    them holds both and is not one."""
+    insns = _one_function(text, key)
+    total = sum(1 for _, op, _, _ in insns if op.startswith("FFMA"))
+    heavy = [b for b in _loops(insns) if _ffma(insns, *b) >= 0.1 * total]
+    inner = [b for b in heavy
+             if not any(o != b and b[0] <= o[0] and o[1] <= b[1] for o in heavy)]
+    if not inner:
+        raise ValueError(f"{key}: no loop")
+    return [_loop_counts(insns, lo, hi) for lo, hi in sorted(set(inner))]
+
+
+def _one_function(text: str, key: str) -> list:
+    funcs = [insns for name, insns in _functions(text).items() if key in name]
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} functions match {key!r}")
+    return funcs[0]
+
+
+def _ffma(insns, lo: int, hi: int) -> int:
+    return sum(1 for a, op, _, _ in insns if lo <= a <= hi and op.startswith("FFMA"))
+
+
+def _loop_counts(insns, lo: int, hi: int) -> dict:
+    """Opcode counts of the loop ``[lo, hi]``: ``static`` all of them,
+    ``fast`` without the slow-path regions (see :func:`step_loop`)."""
     body = [ins for ins in insns if lo <= ins[0] <= hi]
     step = (insns[1][0] - insns[0][0]) if len(insns) > 1 else 16
     skip = set()

@@ -14,8 +14,10 @@ plain PyTorch versions.
 Both normalise the quaternion at every RHS entry by one rsqrt with the
 identity fallback (never hoisted out of the RK4 stages), take the
 restoring wrench from the third DCM row and renormalise after every step
-when ``renormalize``.  ``csrc/quat.cu`` runs one thread per trajectory
-with its 13 states in registers; K6 stages ``TAU`` through shared memory.
+when ``renormalize``.  ``csrc/quat.cu`` runs K6 one thread per
+trajectory with its 13 states in registers, staging ``TAU`` through shared
+memory; K5 runs one thread a start with each block's wrench rows staged
+in shared memory (:func:`quat_plan`, ``csrc/window_rows.cuh``).
 The quat13 step is trig-free, so both are bound by FP32 operations on the
 H100 (~877 flops and 5 rsqrt per RK4 step, 212 and 2 per Euler step).
 
@@ -38,11 +40,15 @@ import torch
 from bluerov2_dynamics_tpu_torch.models.params import FossenParams
 from bluerov2_dynamics_tpu_torch.ops import _build
 from bluerov2_dynamics_tpu_torch.ops.cuda_eval import (
+    WINDOW_THREADS,
+    WindowConsts,
     check_aligned,
     check_window_shapes,
     endpoint_sq,
+    read_plan,
+    sm_count,
+    split_plan,
     sq_scratch,
-    window_plan,
 )
 from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
     METHODS,
@@ -152,6 +158,26 @@ def rollout_final_quat_plain(p: FossenParams, x0, TAU, dt: float, method: str = 
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+# csrc/quat.cu's K5 constants: one thread a start, no pair form (a warp
+# pair measured slower at every start count, PERF.md)
+QUAT_CONSTS = WindowConsts(threads=WINDOW_THREADS, tau_chunk=128)
+
+
+def quat_plan(n_start: int, H: int, sms: int) -> dict:
+    """K5's launch plan (``cuda_eval.split_plan`` of ``QUAT_CONSTS``)."""
+    return split_plan(QUAT_CONSTS, n_start, H, sms)
+
+
+def quat_occupancy(n_start: int, method: str = "euler", renormalize: bool = True,
+                   fused: bool = False) -> dict:
+    """K5's plan for ``n_start`` starts as its launcher makes it on the
+    current card, with the resident blocks per SM and static shared bytes
+    of the kernel it picks."""
+    check_method(method)
+    return read_plan(_build.load_library("quat"), "brov2_window_quat_occupancy",
+                     METHODS[method], int(renormalize), int(fused), n_start)
+
+
 def _check_quat_window(X, TAU) -> None:
     check_kernel_input(X, "X", 13)
     check_kernel_input(TAU, "TAU", 6)
@@ -185,7 +211,8 @@ def launch_window_sq_quat(rc: RowConsts, X, TAU, H: int, method: str, renormaliz
     _check_quat_window(X, TAU)
     lib = _build.load_library("quat")
     with torch.cuda.device(X.device):
-        sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
+        n_blocks = quat_plan(n_start, H, sm_count(X.device))["n_blocks"]
+        sq, partials, ticket, stream = sq_scratch(X, n_blocks)
         code = lib.brov2_window_sq_quat(
             ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), sq.data_ptr(),
             partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,

@@ -10,13 +10,15 @@ Phases (any failure raises and ends the run with a non-zero code):
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every kernel from ``bluerov2_dynamics_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together; then, for the redesigned
-   kernels (the euler12 RK4 rollouts K1 and K3, and K2 in its fused and
-   endpoint forms at 9,065 and 44,800 starts), their registers, stack
+   kernels (the euler12 RK4 rollouts K1 and K3, and the window kernels
+   K2, K4 and K5 in their fused and endpoint forms at 9,065 and 44,800
+   starts, each as its launcher plans it there), their registers, stack
    frame and spill bytes (ptxas), resident blocks per SM at the launched
-   block size (the CUDA occupancy query), block size, K3's stage plan and
-   K2's waves, and the step loop's opcode counts
-   (``cuobjdump -sass``); a spill, or K1/K3 needing a second wave at the
-   bench shape, fails the run;
+   block size (the CUDA occupancy query), block size, warps a start, K3's
+   stage plan, the window kernels' waves and plans, and the step loops'
+   opcode counts (``cuobjdump -sass``; a warp-pair kernel's loop of each
+   warp); a spill, a kernel that cannot be resident, or K1/K3 needing a
+   second wave at the bench shape, fails the run;
 3. main paths, each with every launch count set to 0 just before it and
    read just after; each must have launched its kernels:
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
@@ -35,15 +37,16 @@ Phases (any failure raises and ends the run with a non-zero code):
    - K3: the per-trajectory-command RK4 rollout at 65,536 x 500 through
      ``make_batched_rollout_cuda``;
 4. checks: each kernel against its plain PyTorch version on the same card
-   inputs (K2 at both start counts; the fused sums at rtol 1e-5 and with
-   the same bits on ten calls), the evaluators' RMSEs
+   inputs (K2 at both start counts; K4 and K5 in both forms at both start
+   counts and H = 1, 10, 100; the fused sums at rtol 1e-5 and with the
+   same bits on ten calls), the evaluators' RMSEs
    against the plain step loops, K6's quaternion norms, and small inputs
    against the plain versions on the host CPU;
 5. timing: each kernel and its plain version with CUDA events, the window
    kernels (as short as their launchers' host time) at 9,065 and 44,800
-   starts by the profiler's device events, and the calls end to end (the
-   evaluators in turns with the unfused policy they replace, 5 repeats of
-   20 calls, min / median / max);
+   starts and K1's tau prologue by the profiler's device events, and the
+   calls end to end (the evaluators in turns with the unfused policy they
+   replace, 5 repeats of 20 calls, min / median / max);
 6. K7: the three sharded window evaluators (``parallel.sharded``) at
    44,800 starts x H=100 (Euler) on a one-rank NCCL group, one fused
    launch a call, held against the unsharded kernels, the unfused
@@ -126,6 +129,10 @@ TOL = {
     "window_sq": (1e-5, 0.0),
     "window_sq_wrench": (1e-5, 0.0),
     "window_sq_quat": (1e-5, 0.0),
+    # K4's and K5's endpoints at every start count and H of their checks:
+    # the same operations on states of order one (the plain versions' rows
+    # differ only by FMA contraction)
+    "window_shapes": (0.0, 2e-5),
     # K8 at CHECK_ITERS: one rounding of a fused multiply-add where the
     # plain version has two, over 16 dependent steps.  The fma probe is held
     # by its increment (cuda_probes.fma_peak_increment): its output moves
@@ -149,8 +156,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def max_err(got, want, name):
-    rtol, atol = TOL[name]
+def max_err(got, want, name, tol=None):
+    rtol, atol = TOL[name] if tol is None else TOL[tol]
     got, want = got.double().cpu(), want.double().cpu()
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -202,66 +209,92 @@ def gimbal_near(fossen, p, cfg, lag, x0, U):
     return peak >= GIMBAL_MARGIN
 
 
-STEP_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "MUFU.RCP", "F2I", "I2FP", "FCHK", "BRA",
-            "BSSY", "BSYNC", "LDS", "LDG", "BAR", "SHFL")
+STEP_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "MUFU.RCP", "MUFU.RSQ", "F2I", "I2FP", "FCHK",
+            "BRA", "BSSY", "BSYNC", "LDS", "STS", "LDG", "BAR", "SHFL")
+# K4 and K5 in both forms: (name, library, fused)
+PAIR_KERNELS = (("window_eval_wrench", "window_eval", False), ("window_sq_wrench", "window_eval", True),
+                ("window_eval_quat", "quat", False), ("window_sq_quat", "quat", True))
 
 
 def redesigned_report(logs) -> dict:
     """The redesigned kernels' resources, residency, plan and step-loop
-    opcode counts: K1 and K3 (RK4 with the lag) at the bench shape, K2
-    (Euler with the lag) in its fused form, which the apps run, and its
-    endpoint form, at the apps' and the full recording's starts.  Fails if
-    any spills, or if K1 or K3 needs a second wave at the bench shape."""
+    opcode counts: K1 and K3 (RK4 with the lag) at the bench shape; K2
+    (Euler with the lag), K4 (Euler) and K5 (Euler, renormalised) in their
+    fused form, which the apps run, and their endpoint form, at the apps'
+    and the full recording's starts, each as its launcher plans it there
+    (K4 and K5: one warp or a warp pair a start; a warp-pair kernel has a
+    step loop a warp).  Fails if any spills, or if K1 or K3 needs a second
+    wave at the bench shape."""
+    from bluerov2_dynamics_tpu_torch.eval import rollout_ab as ab
     from bluerov2_dynamics_tpu_torch.ops import _build
     from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
     from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
+    from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
     from bluerov2_dynamics_tpu_torch.ops import cuda_rollout as cr
 
     H = H_APP[-1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # name: (library, mangled-name part, block, resident blocks per SM, blocks, lanes,
-    #        a second wave fails, step loop read)
+    # name: (library, kernel instantiation, block, resident blocks per SM, blocks,
+    #        warps a start, a second wave fails, step loop read, plan)
     kernels = {}
-    for name, lib, (block, per_sm), key in (
-            ("rollout_final", "rollout", cr.rollout_occupancy(), "14rollout_kernelILi1EE"),
+    for name, lib, (block, per_sm), kernel in (
+            ("rollout_final", "rollout", cr.rollout_occupancy(), "rollout_kernel<1>"),
             ("batched_rollout", "batched_rollout", ce.batched_rollout_occupancy(),
-             "22batched_rollout_kernelILi1ELb1EE")):
-        kernels[name] = (lib, key, block, per_sm, -(-B_ROLL // block), 1, True, True)
+             "batched_rollout_kernel<1, true>")):
+        kernels[name] = (lib, kernel, block, per_sm, -(-B_ROLL // block), 1, True, True, None)
     for n in (N_REC - H, N_LARGE):
         for fused in (True, False):
             occ = ce.window_occupancy("euler", True, fused=fused)
             kernels[f"window_{'sq' if fused else 'eval'} {n}"] = (
-                "window_eval", f"18window_eval_kernelILi0ELb1ELb{int(fused)}EE", occ["block"],
-                occ["blocks_per_sm"], ce.window_plan(n, H)["n_blocks"], 1, False, fused)
-    out = {}
-    for name, (lib, key, block, per_sm, n_blocks, lanes, one_wave, read_loop) in kernels.items():
+                "window_eval", f"window_eval_kernel<0, true, {str(fused).lower()}>", occ["block"],
+                occ["blocks_per_sm"], ce.window_plan(n, H)["n_blocks"], 1, False, fused, None)
+        for name, lib, fused in PAIR_KERNELS:
+            plan = (ce.wrench_occupancy(n, "euler", fused) if lib == "window_eval"
+                    else cq.quat_occupancy(n, "euler", True, fused))
+            kernels[f"{name} {n}"] = (lib, ab.pair_kernel(name, plan), plan["block"],
+                                      plan["blocks_per_sm"], plan["n_blocks"], plan["warps"], False,
+                                      True, plan)
+    out, sass = {}, {}
+    for name, (lib, kernel, block, per_sm, n_blocks, warps, one_wave, read_loop,
+               plan) in kernels.items():
+        key = ab.mangled_key(kernel)
         res = [r for fn, r in _build.ptxas_resources(logs[lib]).items() if key in fn]
         if len(res) != 1:
             fail(f"ptxas: {len(res)} functions match {key}")
         res = res[0]
+        if per_sm < 1:
+            fail(f"{name}: {kernel} cannot be resident at {block} threads a block")
         waves = -(-n_blocks // (per_sm * sms))
-        plan = f"; stage plan {ce.stage_plan(B_ROLL, T_ROLL)}" if name == "batched_rollout" else ""
+        extra = f"; stage plan {ce.stage_plan(B_ROLL, T_ROLL)}" if name == "batched_rollout" else ""
+        if plan is not None:
+            extra = f"; {kernel}, plan {plan}"
         print(f"{name}: {res['regs']} registers, {res['stack']}-byte stack frame, spill "
-              f"{res['spill_stores']}/{res['spill_loads']} bytes (stores/loads); {lanes} lane(s) "
-              f"a trajectory, {block} threads a block, {per_sm} resident blocks per SM: "
-              f"{n_blocks} blocks in {waves} wave(s){plan}")
+              f"{res['spill_stores']}/{res['spill_loads']} bytes (stores/loads); {warps} warp(s) "
+              f"a start, {block} threads a block, {per_sm} resident blocks per SM: "
+              f"{n_blocks} blocks in {waves} wave(s){extra}")
         if res["spill_stores"] or res["spill_loads"]:
             fail(f"{name} spills {res['spill_stores']}/{res['spill_loads']} bytes")
         if one_wave and waves > 1:
             fail(f"{name}: {n_blocks} blocks of {block} threads need {waves} waves")
         out[name] = dict(regs=res["regs"], stack=res["stack"], blocks_per_sm=per_sm, block=block,
-                         lanes=lanes, waves=waves)
+                         lanes=1, warps=warps, waves=waves)
+        if plan is not None:
+            out[name].update(kernel=kernel, plan=plan)
         if not read_loop:
             continue
-        text = cp.sass_text(lib)
-        if text is None:
+        if lib not in sass:
+            sass[lib] = cp.sass_text(lib)
+        if sass[lib] is None:
             print(f"{name}: cuobjdump not found; step loop not read")
             continue
-        loop = cp.step_loop(text, key)
-        counts = {op: loop["fast"].get(op, 0) for op in STEP_OPS if loop["static"].get(op)}
-        print(f"{name} step loop: {sum(loop['fast'].values())} instructions on the common path "
-              f"({sum(loop['static'].values())} with the slow paths): {counts}")
-        out[name]["step_loop"] = counts
+        loops = {}
+        for loop in ab.loop_counts(sass[lib], kernel):   # a warp pair's kinematic warp first
+            counts = {op: loop["fast"].get(op, 0) for op in STEP_OPS if loop["static"].get(op)}
+            label = "" if loop["warp"] == "one" else f" ({loop['warp']} warp)"
+            print(f"{name} step loop{label}: {sum(loop['fast'].values())} instructions on the "
+                  f"common path ({sum(loop['static'].values())} with the slow paths): {counts}")
+            loops[loop["warp"]] = counts
+        out[name]["step_loop"] = loops.pop("one", loops)
     return out
 
 
@@ -447,6 +480,14 @@ def main() -> None:
             fail(f"{name} output is not finite {shape}")
 
     # 4. checks -------------------------------------------------------------------
+    # the full recording's start count: random windows of every input contract
+    N = N_LARGE + H_APP[-1]
+    X12_l = torch.from_numpy((0.1 * rng.normal(size=(N, 12))).astype(np.float32)).to(dev)
+    U8_l = torch.from_numpy(np.clip(0.5 * rng.normal(size=(N, 8)), -1, 1).astype(np.float32)).to(dev)
+    TAU_l = torch.from_numpy((4.0 * rng.normal(size=(N, 6))).astype(np.float32)).to(dev)
+    X13_np_l = 0.1 * rng.normal(size=(N, 13))
+    X13_np_l[:, 3] += 1.0
+    X13_l = torch.from_numpy(X13_np_l.astype(np.float32)).to(dev)
     tc, rc = cr.thruster_consts(cfg, lag), cr.row_consts(p, DT)
     tau_k = cr.launch_tau_seq(tc, U)
     tau_p = cr.shared_tau_sequence(cfg, lag, U)
@@ -481,6 +522,41 @@ def main() -> None:
         print(f"{name}: {len(bits)} distinct result(s) in 10 calls")
         if len(bits) != 1:
             fail(f"{name}: ten calls gave {len(bits)} different sums")
+    # K4 and K5 in both forms at the apps' and the full recording's starts,
+    # H = 1, 10, 100: the endpoints and the fused sums against the plain
+    # versions, the sums the same bits on ten calls (each launch as its
+    # launcher plans it: a warp pair or one thread a start)
+    pair_checks = {  # (endpoint, fused): (kernel, fused kernel, plain endpoints, inputs)
+        ("window_eval_wrench", "window_sq_wrench"): (
+            lambda X, V, h: ce.launch_window_eval_wrench(rc, X, V, h, "euler"),
+            lambda X, V, h: ce.launch_window_sq_wrench(rc, X, V, h, "euler"),
+            lambda X, V, h: ce.endpoint_final_wrench_plain(p, X, V, DT, h, "euler"),
+            ((X_rec, W_rec), (X12_l, TAU_l))),
+        ("window_eval_quat", "window_sq_quat"): (
+            lambda X, V, h: cq.launch_window_eval_quat(rc, X, V, h, "euler", True),
+            lambda X, V, h: cq.launch_window_sq_quat(rc, X, V, h, "euler", True),
+            lambda X, V, h: cq.endpoint_final_quat_plain(p, X, V, DT, h, "euler"),
+            ((X13_rec, W_rec), (X13_l, TAU_l))),
+    }
+    pair_checked = {}
+    for (ename, fname), (kern, kern_sq, plain, cases) in pair_checks.items():
+        for X_full, V_full in cases:
+            n = X_full.shape[0] - H_APP[-1]
+            for h in H_APP:
+                X, V = X_full[:n + h], V_full[:n + h]
+                want = plain(X, V, h)
+                print(f"{ename} at {n} starts, H={h}:", end=" ")
+                e = max_err(kern(X, V, h), want, ename, tol="window_shapes")
+                got, want_sq = float(kern_sq(X, V, h)), float(ce.endpoint_sq(want, X, h))
+                close(got, want_sq, TOL[fname][0], f"{fname} at {n} starts, H={h}: fused sum vs "
+                      f"the plain version's")
+                bits = {kern_sq(X, V, h).cpu().numpy().tobytes() for _ in range(10)}
+                if len(bits) != 1:
+                    fail(f"{fname} at {n} starts, H={h}: ten calls gave {len(bits)} sums")
+                pair_checked.setdefault(ename, {})[f"{n} starts, H={h}"] = e
+                pair_checked.setdefault(fname, {})[f"{n} starts, H={h}"] = abs(got - want_sq)
+    print("K4 and K5 agree with their plain versions at both start counts and H = 1, 10, 100; "
+          "the fused sums give the same bits on ten calls")
     err["rollout_final_quat"] = max_err(xqT, cq.rollout_final_quat_plain(p, xq0, TAUq, DT, "rk4"),
                                         "rollout_final_quat")
     near = gimbal_near(fossen, p, cfg, lag, x0, Ub)
@@ -544,7 +620,13 @@ def main() -> None:
     ms["rollout_final"] = cuda_event_time(lambda: cr.launch_rollout(rc, tau_k, x0, "rk4"), iters=10)
     plain_ms["rollout_final"] = cuda_event_time(
         lambda: cr.rollout_rows_plain(p, tau_p, x0, DT, "rk4"), iters=2, warmup=0)
-    ms["shared_tau"] = cuda_event_time(lambda: cr.launch_tau_seq(tc, U), iters=50)
+    # the prologue is shorter than its launcher's host time: the profiler's
+    # device time (CUDA events beside it)
+    event_ms = {"shared_tau": cuda_event_time(lambda: cr.launch_tau_seq(tc, U), iters=50)}
+    ms["shared_tau"] = device_ms(lambda: cr.launch_tau_seq(tc, U), calls=50)
+    if ms["shared_tau"] is None:
+        print("shared_tau: no device events; its time is the CUDA-event time")
+        ms["shared_tau"] = event_ms["shared_tau"]
     plain_ms["shared_tau"] = cuda_event_time(lambda: cr.shared_tau_sequence(cfg, lag, U), iters=3)
     ms["rollout_final_quat"] = cuda_event_time(
         lambda: cq.launch_rollout_quat(rc, xq0, TAUq, "rk4", True), iters=10)
@@ -564,7 +646,8 @@ def main() -> None:
         print(f"{label}: kernel {ms[name]:.4f} ms (plain {plain_ms[name]:.1f} ms); end to end "
               f"{1e3 * host[name]:.4f} ms = {B_ROLL * T_ROLL / host[name]:.4e} RK4 "
               f"trajectory-steps/s")
-    print(f"K1 tau_seq kernel {ms['shared_tau']:.4f} ms (plain {plain_ms['shared_tau']:.2f} ms)")
+    print(f"K1 tau_seq kernel {ms['shared_tau']:.4f} ms on the device, {event_ms['shared_tau']:.4f} "
+          f"ms between CUDA events (plain {plain_ms['shared_tau']:.2f} ms)")
 
     nnz = int((cfg.wrench_map != 0).sum())
     act_ops = actuation_ops(nnz)
@@ -581,13 +664,6 @@ def main() -> None:
 
     # the window kernels at the apps' starts and at the full recording's
     H = H_APP[-1]
-    N = N_LARGE + H
-    X12_l = torch.from_numpy((0.1 * rng.normal(size=(N, 12))).astype(np.float32)).to(dev)
-    U8_l = torch.from_numpy(np.clip(0.5 * rng.normal(size=(N, 8)), -1, 1).astype(np.float32)).to(dev)
-    TAU_l = torch.from_numpy((4.0 * rng.normal(size=(N, 6))).astype(np.float32)).to(dev)
-    X13_np_l = 0.1 * rng.normal(size=(N, 13))
-    X13_np_l[:, 3] += 1.0
-    X13_l = torch.from_numpy(X13_np_l.astype(np.float32)).to(dev)
     windows = {
         "window_eval": (
             lambda X, Ui: ce.launch_window_eval(rc, tc, X, Ui, H, "euler", True),
@@ -608,7 +684,7 @@ def main() -> None:
         windows[name] = (kern, plain, *windows[FUSED[name][1]][2:])
     # the window kernels are as short as their launchers' host time, so
     # their time is the profiler's device time (CUDA events beside it)
-    large, event_ms = {}, {}
+    large = {}
     for name, (kern, plain, ops_step, n_in, inputs) in windows.items():
         for X, Ui in inputs:
             n_start, n_state = X.shape[0] - H, X.shape[1]
@@ -943,22 +1019,17 @@ def main() -> None:
     ]
     counts = {**launches, **k8_launches,
               **{name: k7_launches[v[0]] for name, v in k7.items()}}
-    # the redesigned kernels' resources: K2 at the apps' starts (its K7 body at
-    # the full recording's); K4's and K5's fused forms keep one thread a start
+    # the redesigned kernels' resources and plans: K2, K4 and K5 at the apps'
+    # starts (and the full recording's), their K7 bodies at the full recording's
     app_n = N_REC - H
-    redesigned.update({
-        "window_eval": dict(redesigned[f"window_eval {app_n}"], pr="PR 5",
-                            large=redesigned[f"window_eval {N_LARGE}"]),
-        "window_sq": dict(redesigned[f"window_sq {app_n}"], pr="PR 5",
-                          large=redesigned[f"window_sq {N_LARGE}"]),
-        "sharded_window_eval": dict(redesigned[f"window_sq {N_LARGE}"], pr="PR 5"),
-    })
-    for name, key in (("sharded_window_eval_wrench", "25window_eval_wrench_kernelILi0ELb1EE"),
-                      ("sharded_window_eval_quat", "23window_eval_quat_kernelILi0ELb1ELb1EE")):
-        res = [r for fn, r in _build.ptxas_resources(logs["window_eval" if "wrench" in name
-                                                            else "quat"]).items() if key in fn]
-        redesigned[name] = dict(regs=res[0]["regs"] if len(res) == 1 else None,
-                                blocks_per_sm=None, lanes=1, pr="PR 5")
+    for name, pr in (("window_eval", "PR 5"), ("window_sq", "PR 5"), ("window_eval_wrench", "PR 6"),
+                     ("window_sq_wrench", "PR 6"), ("window_eval_quat", "PR 6"),
+                     ("window_sq_quat", "PR 6")):
+        redesigned[name] = dict(redesigned[f"{name} {app_n}"], pr=pr,
+                                large=redesigned[f"{name} {N_LARGE}"])
+    for name, (fname, *_) in k7.items():
+        redesigned[name] = dict(redesigned[f"{fname} {N_LARGE}"],
+                                pr="PR 5" if fname == "window_sq" else "PR 6")
     kernels = []
     for name, source, replaces in kernels_meta:
         rtol, atol = TOL["rmse"] if name in k7 else TOL[name]
@@ -986,8 +1057,12 @@ def main() -> None:
             r = redesigned[name]
             entry.update(regs=r["regs"], blocks_per_sm=r["blocks_per_sm"],
                          redesigned=r.get("pr", "PR 4"))
-            if "lanes" in r and name not in ("rollout_final", "batched_rollout"):
-                entry.update(lanes=r["lanes"], **({"large_plan": r["large"]} if "large" in r else {}))
+            if name not in ("rollout_final", "batched_rollout"):
+                entry.update(lanes=r["lanes"], warps=r["warps"],
+                             **({"plan": r["plan"]} if "plan" in r else {}),
+                             **({"large_plan": r["large"]} if "large" in r else {}))
+        if name in pair_checked:
+            entry["max_abs_err_by_shape"] = pair_checked[name]
         if name == "batched_rollout":
             entry["checked"] = (f"{B_ROLL - n_near} of {B_ROLL} trajectories; {n_near} near the "
                                 f"gimbal singularity left out (max|kernel - plain| {near_diff:.3e})")

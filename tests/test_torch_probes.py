@@ -292,6 +292,41 @@ def test_step_loop_counts_the_common_path():
         cp.step_loop(STEP_SASS, "window_eval_kernel")
 
 
+PAIR_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_125window_pair_wrench_kernelILi0ELb0EEEv9RowConstsPKfS3_Pfii9SqScratch
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                @P0 BRA 0xa0 ;
+        /*0030*/                   FFMA R6, R0, R7, R8 ;
+        /*0040*/                   FFMA R6, R6, R7, R8 ;
+        /*0050*/                   MUFU.RCP R2, R3 ;
+        /*0060*/                   STS.128 [R4], R8 ;
+        /*0070*/                   BAR.SYNC R5, 0x40 ;
+        /*0080*/                   LDS R9, [R4] ;
+        /*0090*/                @P1 BRA 0x30 ;
+        /*00a0*/                   FFMA R6, R0, R7, R8 ;
+        /*00b0*/                   STS [R4], R8 ;
+        /*00c0*/                   BAR.SYNC R5, 0x40 ;
+        /*00d0*/                   LDS.128 R8, [R4] ;
+        /*00e0*/                   FMUL R6, R6, R7 ;
+        /*00f0*/                @P2 BRA 0xa0 ;
+        /*0100*/                @P3 BRA 0x10 ;
+        /*0110*/                   EXIT ;
+"""
+
+
+def test_step_loops_finds_each_warps_loop_of_a_warp_pair_kernel():
+    """Both warps' loops hold FFMA; the chunk loop around them holds both
+    and is not a step loop; the kinematic warp's holds the MUFU."""
+    got = cp.step_loops(PAIR_SASS, "25window_pair_wrench_kernelILi0ELb0E")
+    assert [g["window"] for g in got] == [(0x30, 0x90), (0xa0, 0xf0)]
+    assert got[0]["fast"] == {"FFMA": 2, "MUFU.RCP": 1, "STS": 1, "BAR": 1, "LDS": 1, "BRA": 1}
+    assert got[1]["fast"] == {"FFMA": 1, "STS": 1, "BAR": 1, "LDS": 1, "FMUL": 1, "BRA": 1}
+    # the one-loop reading would take the chunk loop: neither warp's loop
+    # holds 90% of its FFMA
+    assert cp.step_loop(PAIR_SASS, "25window_pair_wrench_kernelILi0ELb0E")["window"] == (0x10, 0x100)
+
+
 def test_ptxas_resources_reads_each_function():
     log = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN1a14rollout_kernelILi1EEEv' for 'sm_90a'
