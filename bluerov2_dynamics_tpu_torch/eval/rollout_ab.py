@@ -12,8 +12,11 @@ into a directory under ``build/`` with
 ``--variant`` adds more trees, and ``--tweak`` a copy of this checkout's
 ``csrc/`` with launch constants changed (``constexpr int`` or ``bool``,
 each named once in the tree), to time one lever alone.  A tree may hold
-any of the kernels: K1 ``rollout.cu``; K3 ``batched_rollout.cu`` (in an
-older tree the per-trajectory instantiation of ``window_eval.cu``); K2,
+any of the kernels: K1 ``rollout.cu``, with its prologue ``shared_tau``
+and the whole ``U -> xT`` sequence as the main path launches it
+(``rollout_from_commands``: one C call; in a tree without that entry
+point, its ``brov2_tau_seq`` then its ``brov2_rollout_final``); K3
+``batched_rollout.cu`` (in an older tree the per-trajectory instantiation of ``window_eval.cu``); K2,
 and K4 in its endpoint (``window_eval_wrench``) and fused
 (``window_sq_wrench``) forms, ``window_eval.cu``; K5 in both forms
 (``window_eval_quat``, ``window_sq_quat``) and K6 ``quat.cu``.  Each
@@ -31,9 +34,11 @@ resident blocks per SM, and the opcode counts of the step loop (of each
 warp's loop in a warp-pair kernel) from ``cuobjdump -sass`` (the
 listings, gzipped, and ``rows.json`` go to ``--out``).  Then it times the
 kernels with CUDA events, in turns (the trees, current, current, the
-trees again) on the same inputs: K1, K3 and K6 at B = 65,536 x T = 500
-RK4; the window kernels at ``--starts`` (9,065 and 44,800) starts x
-H = 100 Euler (K2 with the lag, K5 renormalised).  Every tree's kernels,
+trees again) on the same inputs: K1, its prologue and sequence, K3 and K6
+at B = 65,536 x T = 500 RK4 (the prologue and the sequence also by the
+profiler's device time, and the sequence by the host clock, each call
+ended by a synchronise, as the main path's caller sees it); the window
+kernels at ``--starts`` (9,065 and 44,800) starts x H = 100 Euler (K2 with the lag, K5 renormalised).  Every tree's kernels,
 this checkout's too, are launched through their C entry points on
 buffers made once, so no Python wrapper's host time falls between the
 timed launches.  It prints the largest difference of each output from
@@ -68,10 +73,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @dataclass(frozen=True)
 class Kernel:
     """A kernel as this checkout exports it: its library (whose C signatures
-    ``_build`` holds), launcher and occupancy query; the candidate sources
-    of a tree as ``(file, kernel instantiation, a text the source must
-    hold, the constant that states its block size)``; whether it runs at
-    window start counts (else at B trajectories)."""
+    ``_build`` holds), launcher and occupancy query (None: the prologue,
+    one block, has none); the candidate sources of a tree as ``(file,
+    kernel instantiation, a text the source must hold, the constant that
+    states its block size)``; whether it runs at window start counts (else
+    at B trajectories)."""
 
     lib: str
     launcher: str
@@ -80,10 +86,16 @@ class Kernel:
     window: bool
 
 
+SEQUENCE = "rollout_from_commands"
 KERNELS = {
     "rollout_final": Kernel("rollout", "brov2_rollout_final", "brov2_rollout_occupancy",
                             (("rollout.cu", "rollout_kernel<1>", "rollout_kernel", "kThreads"),),
                             False),
+    "shared_tau": Kernel("rollout", "brov2_tau_seq", None,
+                         (("rollout.cu", "tau_seq_kernel", "tau_seq_kernel", None),), False),
+    SEQUENCE: Kernel("rollout", "brov2_rollout_from_commands", "brov2_rollout_commands_occupancy",
+                     (("rollout.cu", "rollout_commands_kernel<1>", "brov2_rollout_from_commands",
+                       "kBlock"),), False),
     "batched_rollout": Kernel(
         "batched_rollout", "brov2_batched_rollout", "brov2_batched_rollout_occupancy",
         (("batched_rollout.cu", "batched_rollout_kernel<1, true>", "batched_rollout_kernel",
@@ -119,8 +131,8 @@ KERNELS = {
 # with the lag (K2), RK4 (K1, K3), Euler renormalised (K5); the endpoint
 # (0) or fused (1) form; K4's and K5's also take the start count and
 # report a plan (cuda_eval.PLAN_FIELDS).
-_QUERY_ARGS = {"rollout_final": (1,), "batched_rollout": (1, 1), "window_eval": (0, 1, 0),
-               "window_eval_wrench": (0, 0), "window_sq_wrench": (0, 1),
+_QUERY_ARGS = {"rollout_final": (1,), SEQUENCE: (1,), "batched_rollout": (1, 1),
+               "window_eval": (0, 1, 0), "window_eval_wrench": (0, 0), "window_sq_wrench": (0, 1),
                "window_eval_quat": (0, 1, 0), "window_sq_quat": (0, 1, 1)}
 PLAN_QUERIES = ("window_eval_wrench", "window_sq_wrench", "window_eval_quat", "window_sq_quat")
 # the instantiation K2's query reports on (the endpoint form)
@@ -179,12 +191,12 @@ def tree_plan(csrc: Path) -> dict:
                 continue
             for fn in (k.launcher, k.query):
                 sig = _build._SIGNATURES[k.lib].get(fn)
-                n = _n_params(text, fn)
+                n = None if fn is None else _n_params(text, fn)
                 if sig is not None and n is not None and n != len(sig[0]):
                     raise ValueError(f"{src}: {fn} takes {n} parameters, this checkout's "
                                      f"{len(sig[0])}")
             block = None
-            if f"{k.query}(" not in text:
+            if k.query is not None and f"{k.query}(" not in text:
                 m = re.search(rf"constexpr int {block_const} = (\d+);", text)
                 if m is None:
                     raise ValueError(f"{src}: no {k.query} and no {block_const}")
@@ -262,7 +274,8 @@ def build_trees(trees: dict) -> dict:
             fn = getattr(so, k.launcher)
             fn.argtypes, fn.restype = _build._SIGNATURES[k.lib][k.launcher]
             query = (_shim_query(so, name, kernel) if block is not None
-                     else _source_query(so, name, kernel))
+                     else _source_query(so, name, kernel) if k.query is not None
+                     else lambda n, kernel=kernel: (kernel, 1, None, None))
             built[label][name] = (so, log, out, query)
     return built
 
@@ -339,6 +352,8 @@ def mangled_key(kernel: str) -> str:
     """The mangled-name part of ``rollout_kernel<1>`` or
     ``window_eval_kernel<0, true, 4, false>``."""
     base, _, args = kernel.partition("<")
+    if not args:
+        return f"{len(base)}{base}"
     parts = [a.strip() for a in args.rstrip(">").split(",") if a.strip()]
     enc = "".join("Lb1E" if a == "true" else "Lb0E" if a == "false" else f"Li{a}E" for a in parts)
     return f"{len(base)}{base}I{enc}E"
@@ -352,7 +367,13 @@ def loop_counts(sass: str, kernel: str) -> list:
     from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
 
     key = mangled_key(kernel)
-    if "_pair_" not in kernel:
+    if kernel.startswith("rollout_commands_kernel"):
+        # its chunk loop holds the folded prologue's FFMA as well: the step
+        # loop is the innermost loop heaviest in FFMA
+        loops = [("one", max(cp.step_loops(sass, key),
+                             key=lambda l: sum(n for op, n in l["static"].items()
+                                               if op.startswith("FFMA"))))]
+    elif "_pair_" not in kernel:
         loops = [("one", cp.step_loop(sass, key))]
     else:
         loops = sorted((("kinematic" if any(op.startswith("MUFU") for op in l["fast"])
@@ -367,7 +388,7 @@ def report(label: str, kernel: str, log: str, sass: str | None, block: int,
     res = [r for fn, r in _build.ptxas_resources(log).items() if key in fn]
     row = dict(kernel=kernel, block=block, blocks_per_sm=blocks_per_sm,
                resources=res[0] if res else None, plan=plan)
-    if sass is not None:
+    if sass is not None and kernel != "tau_seq_kernel":
         row["step_loops"] = [
             dict(warp=l["warp"], static=sum(l["static"].values()),
                  fast=dict(sorted(l["fast"].items(), key=lambda kv: -kv[1])),
@@ -416,6 +437,8 @@ def main(argv=None) -> None:
     ap.add_argument("--no-current", action="store_true",
                     help="measure the other trees' kernels only")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--host-calls", type=int, default=60,
+                    help="host-clock calls of the U -> xT sequence a timing (median)")
     a = ap.parse_args(argv)
     names = [n for n in a.kernels.split(",") if n]
     unknown = set(names) - set(KERNELS)
@@ -437,7 +460,7 @@ def main(argv=None) -> None:
     if not a.no_current:
         trees["current"] = CSRC
 
-    from bluerov2_dynamics_tpu_torch.eval.timing import cuda_event_time
+    from bluerov2_dynamics_tpu_torch.eval.timing import cuda_event_time, device_ms, host_ms
     from bluerov2_dynamics_tpu_torch.models.params import (
         fossen_params, lag_params, thruster_config)
     from bluerov2_dynamics_tpu_torch.ops import cuda_probes as cp
@@ -449,6 +472,7 @@ def main(argv=None) -> None:
     x0, U, Ub, xq0, TAUq, win = inputs(dev, starts, names)
     built = build_trees(trees)
     tau = cr.launch_tau_seq(tc, U) if "rollout_final" in names else None
+    F_scratch = torch.empty((T, 8), device=dev)     # an older brov2_tau_seq's scratch
     stream = torch.cuda.current_stream().cuda_stream
     prc, ptc = ctypes.addressof(rc), ctypes.addressof(tc)
     partials = torch.empty(1 << 16, device=dev)
@@ -475,6 +499,12 @@ def main(argv=None) -> None:
         elif name == "rollout_final":
             out = torch.empty_like(x0)
             args = (prc, tau.data_ptr(), x0.data_ptr(), out.data_ptr(), B, T, 1)
+        elif name == "shared_tau":
+            out = torch.empty((T, 6), device=dev)
+            args = (ptc, U.data_ptr(), F_scratch.data_ptr(), out.data_ptr(), T, 1)
+        elif name == SEQUENCE:   # the prologue inside: no tau_seq in device memory
+            out = torch.empty_like(x0)
+            args = (prc, ptc, U.data_ptr(), x0.data_ptr(), out.data_ptr(), None, B, T, 1, 1)
         elif name == "rollout_final_quat":
             out = torch.empty_like(xq0)
             args = (prc, TAUq.data_ptr(), xq0.data_ptr(), out.data_ptr(), B, T, 1, 1)
@@ -487,11 +517,41 @@ def main(argv=None) -> None:
             return out
         return run
 
+    def two_launches(so, alloc):
+        """A tree's U -> xT sequence without its own entry point: its
+        brov2_tau_seq, then its brov2_rollout_final; ``alloc`` makes the
+        buffers on every call, as the main path of such a tree did."""
+        def buffers():
+            return (torch.empty((T, 8), device=dev), torch.empty((T, 6), device=dev),
+                    torch.empty_like(x0))
+        made = buffers()
+
+        def run():
+            F, tau_b, out = buffers() if alloc else made
+            _build.check(so, so.brov2_tau_seq(ptc, U.data_ptr(), F.data_ptr(), tau_b.data_ptr(),
+                                              T, 1, stream), "shared_tau")
+            _build.check(so, so.brov2_rollout_final(prc, tau_b.data_ptr(), x0.data_ptr(),
+                                                    out.data_ptr(), B, T, 1, stream),
+                         "rollout_final")
+            return out
+        return run
+
+    def main_path(so):
+        """The U -> xT call as the main path makes it through its entry
+        point: a new xT, one C call."""
+        def run():
+            out = torch.empty_like(x0)
+            _build.check(so, so.brov2_rollout_from_commands(
+                prc, ptc, U.data_ptr(), x0.data_ptr(), out.data_ptr(), None, B, T, 1, 1, stream),
+                SEQUENCE)
+            return out
+        return run
+
     a.out.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}")
-    rows, runs = {}, {}
+    rows, runs, e2e = {}, {}, {}
     if a.trig_bits:
         rows["trig_bits"] = trig_bits()
     for label, libs in built.items():
@@ -507,16 +567,44 @@ def main(argv=None) -> None:
                 rows[f"{label} {name} {n}"] = report(f"{label}_{name}_{n}", kernel, log,
                                                      sass_of[path], block, per_sm, plan)
                 runs[f"{label} {name} {n}"] = launcher(so, name, n)
+                if name == SEQUENCE:
+                    e2e[f"{label} {name} {n}"] = main_path(so)
+        two_launch = {"shared_tau", "rollout_final"} <= set(libs)
+        if SEQUENCE in names and SEQUENCE not in libs and two_launch:
+            so, log, path, query = libs["rollout_final"]
+            kernel, block, per_sm, _ = query(B)
+            if path not in sass_of:
+                sass_of[path] = _keep_sass(cp.sass_text("rollout", path=path),
+                                           a.out / f"{label}_{path.stem}.sass.gz")
+            rows[f"{label} {SEQUENCE} {B}"] = report(f"{label}_{SEQUENCE}_{B}", kernel, log,
+                                                     sass_of[path], block, per_sm, None)
+            rows[f"{label} {SEQUENCE} {B}"]["launches"] = 2
+            runs[f"{label} {SEQUENCE} {B}"] = two_launches(so, alloc=False)
+            e2e[f"{label} {SEQUENCE} {B}"] = two_launches(so, alloc=True)
 
     labels = [*others, "current", "current", *reversed(others)] if not a.no_current else others
     cases = [(name, n) for name in names for n in (starts if KERNELS[name].window else (B,))]
     order = [f"{label} {name} {n}" for name, n in cases for label in labels
              if f"{label} {name} {n}" in runs]
     times = {k: [] for k in order}
+    dev_times = {k: [] for k in order if k.split()[1] in ("shared_tau", SEQUENCE)}
+    host_times = {k: [] for k in order if k in e2e}
     for k in order:
         times[k].append(cuda_event_time(runs[k], iters=a.iters))
+        if k in dev_times:
+            dev_times[k].append(device_ms(runs[k], calls=a.iters))
+        if k in host_times:
+            v = sorted(host_ms(e2e[k], calls=a.host_calls))
+            host_times[k].append(v[len(v) // 2])
     for k, v in times.items():
-        print(f"time {k}: " + " / ".join(f"{t:.4f}" for t in v) + " ms")
+        line = f"time {k}: " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+        if k in dev_times:
+            line += "; profiler device time " + " / ".join(
+                "not measured" if t is None else f"{t:.4f}" for t in dev_times[k]) + " ms"
+        if k in host_times:
+            line += (f"; host clock, median of {a.host_calls} synchronised calls "
+                     + " / ".join(f"{t:.4f}" for t in host_times[k]) + " ms")
+        print(line)
     print("clocks.sm, power.draw, power.limit: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
@@ -534,6 +622,10 @@ def main(argv=None) -> None:
             rows[f"{label} {name} {n}"][f"max_abs_diff_vs_{have[0]}"] = d
     for k, v in times.items():
         rows[k]["ms"] = v
+        if k in dev_times:
+            rows[k]["device_ms"] = dev_times[k]
+        if k in host_times:
+            rows[k]["host_median_ms"] = host_times[k]
     (a.out / "rows.json").write_text(json.dumps(rows, indent=1))
 
 

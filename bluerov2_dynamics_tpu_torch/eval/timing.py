@@ -3,7 +3,8 @@
 Counterpart of ``bluerov2_dynamics_tpu/eval/timing.py``.  PyTorch returns
 before the device finishes, so a host clock must end on a synchronise;
 :func:`cuda_event_time` times many launches between CUDA events instead,
-which measures the device's own time.
+which measures the device's own time, and :func:`device_ms` reads the
+profiler's device events, for work shorter than its launcher's host time.
 """
 
 from __future__ import annotations
@@ -67,3 +68,47 @@ def cuda_event_time(fn: Callable, iters: int = 10, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / max(iters, 1)
+
+
+def host_ms(fn: Callable, calls: int = 50, warmup: int = 1) -> list:
+    """Host milliseconds of each of ``calls`` calls of ``fn()``, each ended
+    by a ``torch.cuda.synchronize()``, after ``warmup`` calls."""
+    for _ in range(max(warmup, 0)):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def profile_calls(fn: Callable, calls: int = 20):
+    """``torch.profiler`` over ``calls`` calls of ``fn`` after one warm-up:
+    ``(device events, host microseconds of the window)``; no events where
+    the profiler cannot trace the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+        return [], 0.0
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall_us
+
+
+def device_ms(fn: Callable, calls: int = 20):
+    """Mean device milliseconds a call of ``fn`` (its kernels, copies and
+    sets as the profiler traces them), or None without device events.  A
+    kernel shorter than its launcher's host time cannot be timed by CUDA
+    events around back-to-back calls: the device waits on the host."""
+    dev, _ = profile_calls(fn, calls)
+    return 1e-3 * sum(e.time_range.elapsed_us() for e in dev) / calls if dev else None

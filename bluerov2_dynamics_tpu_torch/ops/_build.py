@@ -9,7 +9,9 @@ rebuilds and an unchanged one loads at once.  :func:`build` starts one
 back to the plain PyTorch versions.
 
 ``launches`` holds one plain integer per kernel; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  K1 with its prologue
+folded in is one launch of K1 (``rollout_final``); ``shared_tau`` counts
+only the prologue kernel launched alone.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ _SIGNATURES = {
     "rollout": {
         "brov2_tau_seq": ([_P, _P, _P, _P, _I, _I, _P], _I),
         "brov2_rollout_final": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "brov2_rollout_from_commands": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "brov2_rollout_occupancy": ([_I, _P, _P], _I),
+        "brov2_rollout_commands_occupancy": ([_I, _P, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
     "window_eval": {

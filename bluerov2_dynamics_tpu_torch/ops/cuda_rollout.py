@@ -6,20 +6,27 @@ package (and the ``lax.scan`` ``shared_tau_sequence`` that feeds it): B
 starts advance T Euler or RK4 steps under one command sequence ``U (T, 8)``
 and only the final states ``(B, 12)`` are returned.
 
-* ``csrc/rollout.cu`` holds the two kernels: the one-block prologue that
-  turns ``U`` into the per-step wrench ``tau_seq (T, 6)`` (curve, lag,
-  wrench map) and the rollout, one thread per start with its 12 states in
-  registers for all T steps.  It is bound by operations on the H100 (~684
-  flops, 8 divisions and 12 exact sincosf per RK4 step; x0, xT and
-  tau_seq are its only traffic).  Its block size is a constant of the
-  kernel, by measurement; :func:`rollout_occupancy` reports it with the
-  resident blocks per SM.
+* ``csrc/rollout.cu`` holds the rollout, one thread per start with its 12
+  states in registers for all T steps, and the prologue that turns ``U``
+  into the per-step wrench ``tau_seq (T, 6)`` (curve, lag, wrench map).
+  The rollout is bound by operations on the H100 (~684 flops, 8 divisions
+  and 12 exact sincosf per RK4 step; x0, xT and U are its only traffic).
+  The prologue runs a chunk of 256 steps on a block's 8 warps, one
+  thruster a warp and 8 steps a lane, with the lanes' lag maps combined by
+  a warp-shuffle scan; the main path runs it inside K1 itself, so
+  ``U -> xT`` is one C call and one launch
+  (:func:`launch_rollout_from_commands`).  Block size and launches are
+  constants of the source, by measurement; :func:`rollout_occupancy` and
+  :func:`rollout_commands_occupancy` report them with the resident blocks
+  per SM.
 * The plain version is the row form of the JAX kernel body
   (``make_hydro_rows`` / ``make_rhs_rows`` / ``rk4_rows``: the state is a
   12-tuple of ``(B,)`` tensors and every coefficient a Python float), with
-  the same association order as the kernel.  The CPU tests hold it against
-  the Pallas kernel in interpret mode; ``chip_smoke.py`` holds the kernel
-  against it on the card.
+  the same association order as the kernel; the prologue's is
+  :func:`shared_tau_sequence_chunked`, in the kernel's chunked order.  The
+  CPU tests hold them against the Pallas kernel in interpret mode and the
+  ``lax.scan``; ``chip_smoke.py`` holds the kernels against them on the
+  card.
 
 The wrappers dispatch on the tensors' device: CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.
@@ -138,6 +145,59 @@ def shared_tau_sequence(cfg: ThrusterConfig, lag: LagParams, U, use_lag: bool = 
         state, F_t = lag_step(lag, state, F_cmd[t])
         F.append(F_t)
     F = torch.stack(F) if F else F_cmd
+    return wrench_from_thrust(cfg, F)
+
+
+# csrc/rollout.cu: kTauChunk steps a chunk of the prologue, kLanes lanes
+# (one warp) a thruster's lag scan
+TAU_CHUNK, TAU_LANES = 256, 32
+
+
+def shared_tau_sequence_chunked(cfg: ThrusterConfig, lag: LagParams, U, use_lag: bool = True,
+                                chunk: int = TAU_CHUNK, lanes: int = TAU_LANES):
+    """The wrench sequence ``(T, 6)`` of :func:`shared_tau_sequence` in the
+    kernel's association order: for each chunk of ``chunk`` steps, each of
+    ``lanes`` lanes runs its ``chunk // lanes`` steps from rest (lane 0
+    from the chunk's start state); an inclusive scan combines the lanes'
+    maps ``x -> P x + e`` (``P = Ad^(chunk // lanes)`` by squaring, level
+    ``s`` adding ``P^(2^s)`` times the lane ``2^s`` before); each lane then
+    reruns its steps from the end state of the lane before it, and the last
+    lane's end state starts the next chunk.  ``chunk`` and ``lanes`` are
+    powers of two.  Plain PyTorch (a loop over chunks)."""
+    cfg, lag = cfg.to(U.device), lag.to(U.device)
+    F_cmd = static_thrust(cfg, U)
+    if not use_lag:
+        return wrench_from_thrust(cfg, F_cmd)
+    T, m = U.shape[0], chunk // lanes
+    P = lag.Ad
+    for _ in range(m.bit_length() - 1):
+        P = P @ P
+    powers = [P]
+    for _ in range(lanes.bit_length() - 2):
+        powers.append(powers[-1] @ powers[-1])
+    carry = torch.zeros((8, 3), dtype=U.dtype, device=U.device)
+    F = torch.empty_like(F_cmd)
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        f = torch.zeros((lanes * m, 8), dtype=U.dtype, device=U.device)
+        f[:n] = F_cmd[t0:t0 + n]
+        f = f.reshape(lanes, m, 8)
+        # a lane past the last step advances on zeros here, where the kernel
+        # skips the step: only its own (unused) end state differs
+        e = torch.zeros((lanes, 8, 3), dtype=U.dtype, device=U.device)
+        e[0] = carry
+        for i in range(m):
+            e, _ = lag_step(lag, e, f[:, i])
+        for s, Ps in enumerate(powers):
+            d = 1 << s
+            e = torch.cat([e[:d], e[:-d] @ Ps.T + e[d:]])
+        x = torch.cat([carry[None], e[:-1]])
+        out = []
+        for i in range(m):
+            x, F_i = lag_step(lag, x, f[:, i])
+            out.append(F_i)
+        F[t0:t0 + n] = torch.stack(out, dim=1).reshape(lanes * m, 8)[:n]
+        carry = x[-1]
     return wrench_from_thrust(cfg, F)
 
 
@@ -276,8 +336,9 @@ def rollout_rows_plain(p: FossenParams, tau_seq, x0, dt: float, method: str = "r
 
 def rollout_final_plain(p: FossenParams, cfg: ThrusterConfig, lag: LagParams,
                         x0, U, dt: float, method: str = "rk4", use_lag: bool = True):
-    """Plain PyTorch version of K1: ``x0 (B, 12)``, ``U (T, 8)`` -> ``(B, 12)``."""
-    tau_seq = shared_tau_sequence(cfg, lag, U.to(torch.float32), use_lag)
+    """Plain PyTorch version of K1: ``x0 (B, 12)``, ``U (T, 8)`` -> ``(B, 12)``,
+    its wrench sequence in the kernel's chunked order."""
+    tau_seq = shared_tau_sequence_chunked(cfg, lag, U.to(torch.float32), use_lag)
     return rollout_rows_plain(p, tau_seq, x0, dt, method)
 
 
@@ -307,15 +368,15 @@ def _stream(t) -> int:
 
 
 def launch_tau_seq(consts: ThrusterConsts, U, use_lag: bool = True):
-    """Launch the prologue kernel: ``tau_seq (T, 6)`` from ``U (T, 8)``."""
+    """Launch the prologue kernel alone: ``tau_seq (T, 6)`` from ``U (T, 8)``,
+    in the order of :func:`shared_tau_sequence_chunked`."""
     check_kernel_input(U, "U", 8)
     lib = _build.load_library("rollout")
     T = U.shape[0]
-    F = torch.empty((T, 8), dtype=torch.float32, device=U.device)
     tau = torch.empty((T, 6), dtype=torch.float32, device=U.device)
     with torch.cuda.device(U.device):
-        rc = lib.brov2_tau_seq(ctypes.addressof(consts), U.data_ptr(), F.data_ptr(),
-                               tau.data_ptr(), T, int(use_lag), _stream(U))
+        rc = lib.brov2_tau_seq(ctypes.addressof(consts), U.data_ptr(), None, tau.data_ptr(), T,
+                               int(use_lag), _stream(U))
     _build.check(lib, rc, "shared_tau")
     _build.launches["shared_tau"] += 1
     return tau
@@ -330,6 +391,48 @@ def rollout_occupancy(method: str = "rk4") -> tuple:
     _build.check(lib, lib.brov2_rollout_occupancy(METHODS[method], ctypes.byref(block),
                                                   ctypes.byref(n)), "rollout occupancy")
     return block.value, n.value
+
+
+def rollout_commands_occupancy(method: str = "rk4") -> tuple:
+    """``(block, resident blocks per SM)`` of the K1 kernel with the
+    prologue folded in, which :func:`launch_rollout_from_commands` launches
+    (the CUDA occupancy query)."""
+    check_method(method)
+    lib = _build.load_library("rollout")
+    block, n = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.brov2_rollout_commands_occupancy(
+        METHODS[method], ctypes.byref(block), ctypes.byref(n)), "rollout_from_commands occupancy")
+    return block.value, n.value
+
+
+def launch_rollout_from_commands(rc: RowConsts, tc: ThrusterConsts, U, x0, method: str,
+                                 use_lag: bool = True, tau=None):
+    """K1 from the commands, ``x0 (B, 12)`` and ``U (T, 8)`` -> ``xT (B, 12)``:
+    one C call, one launch.  The prologue runs inside K1 and writes
+    ``tau_seq`` into ``tau (T, 6)`` where one is given.  Counts one launch
+    of K1; the prologue kernel is not launched."""
+    check_method(method)
+    check_kernel_input(x0, "x0", 12)
+    check_kernel_input(U, "U", 8)
+    if tau is not None:
+        check_kernel_input(tau, "tau", 6)
+    if not same_device(x0, U, *(() if tau is None else (tau,))):
+        raise ValueError("x0, U and tau must be on one device")
+    B, T = x0.shape[0], U.shape[0]
+    if tau is not None and tau.shape[0] != T:
+        raise ValueError(f"tau must be ({T}, 6), got {tuple(tau.shape)}")
+    out = torch.empty_like(x0)
+    if B == 0 and tau is None:
+        return out
+    lib = _build.load_library("rollout")
+    with torch.cuda.device(x0.device):
+        code = lib.brov2_rollout_from_commands(
+            ctypes.addressof(rc), ctypes.addressof(tc), U.data_ptr(), x0.data_ptr(),
+            out.data_ptr(), None if tau is None else tau.data_ptr(), B, T, METHODS[method],
+            int(use_lag), _stream(x0))
+    _build.check(lib, code, "rollout_from_commands")
+    _build.launches["rollout_final"] += 1
+    return out
 
 
 def launch_rollout(consts: RowConsts, tau_seq, x0, method: str):
@@ -362,8 +465,9 @@ def make_rollout_final_cuda(
     use_lag: bool = True,
 ):
     """Build ``fn(x0, U) -> xT``: ``x0 (B, 12)``, shared commands
-    ``U (T, 8)``.  The constants are read once here; any B works (the
-    ragged edge is masked in the kernel)."""
+    ``U (T, 8)``.  The constants are read once here; any B and T work (the
+    ragged edges are masked in the kernel).  On CUDA tensors one C call
+    makes the whole ``U -> xT`` sequence (:func:`launch_rollout_from_commands`)."""
     check_method(method)
     rc, tc = row_consts(p, dt), thruster_consts(cfg, lag)
 
@@ -372,7 +476,7 @@ def make_rollout_final_cuda(
             raise ValueError(f"x0 and U on different devices ({x0.device}, {U.device})")
         if x0.device.type == "cpu":
             return rollout_final_plain(p, cfg, lag, x0, U, dt, method, use_lag)
-        return launch_rollout(rc, launch_tau_seq(tc, U, use_lag), x0, method)
+        return launch_rollout_from_commands(rc, tc, U, x0, method, use_lag)
 
     return fn
 

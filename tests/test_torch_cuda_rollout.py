@@ -6,6 +6,9 @@ Tolerance atol 2e-5 in float32: the JAX package's own for this kernel
 (tests/test_pallas_rollout.py).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -48,6 +51,46 @@ def test_shared_tau_sequence_matches_jax(use_lag, rng):
     want = jpr.shared_tau_sequence(jcfg, jlag, jnp.asarray(U), use_lag)
     got = cr.shared_tau_sequence(tcfg, tlag, torch.from_numpy(U), use_lag)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# the prologue's chunk edges: one step, a chunk less one, one, one more; the
+# bench's T; a whole recording (36 chunks)
+CHUNK_T = (1, cr.TAU_CHUNK - 1, cr.TAU_CHUNK, cr.TAU_CHUNK + 1, 500, 9_165)
+
+
+@pytest.mark.parametrize("use_lag", [True, False])
+@pytest.mark.parametrize("T", CHUNK_T)
+def test_chunked_tau_sequence_matches_jax(T, use_lag, rng):
+    """The kernel's association order (a warp-shuffle scan over lanes of 8
+    steps, chunks of 256) against the JAX ``lax.scan``.  atol 2e-5 with
+    rtol 1e-5: the wrench reaches ~130 N, where one float32 ulp is 7.6e-6,
+    and the serial plain order itself differs from JAX by 3.4e-5 there."""
+    (_, jcfg, jlag), (_, tcfg, tlag) = _models()
+    U = np.clip(rng.normal(size=(T, 8)), -1, 1).astype(np.float32)
+    want = np.asarray(jpr.shared_tau_sequence(jcfg, jlag, jnp.asarray(U), use_lag))
+    got = cr.shared_tau_sequence_chunked(tcfg, tlag, torch.from_numpy(U), use_lag)
+    assert got.shape == (T, 6) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-5)
+
+
+def test_chunked_tau_sequence_is_as_close_to_float64_as_the_serial_order(rng):
+    """The reassociated scan loses no accuracy: against the same stored
+    coefficients run in float64, its largest error over a whole recording
+    is within one float32 ulp of 64 N of the serial order's."""
+    _, (_, tcfg, tlag) = _models()
+    U = torch.from_numpy(np.clip(rng.normal(size=(9_165, 8)), -1, 1).astype(np.float32))
+    cfg64, lag64 = (type(c)(*(f.double() for f in c)) for c in (tcfg, tlag))
+    exact = cr.shared_tau_sequence(cfg64, lag64, U.double())
+    err_chunked = float((cr.shared_tau_sequence_chunked(tcfg, tlag, U) - exact).abs().max())
+    err_serial = float((cr.shared_tau_sequence(tcfg, tlag, U) - exact).abs().max())
+    assert err_chunked <= err_serial + 7.7e-6, (err_chunked, err_serial)
+
+
+def test_prologue_chunk_mirrors_the_kernel_constants():
+    text = (Path(cr.__file__).resolve().parent.parent / "csrc" / "rollout.cu").read_text()
+    const = {m.group(1): m.group(2) for m in re.finditer(r"constexpr \w+ (k\w+) = ([^;]+);", text)}
+    assert int(const["kTauChunk"]) == cr.TAU_CHUNK and int(const["kLanes"]) == cr.TAU_LANES
+    assert const["kLaneSteps"] == "kTauChunk / kLanes"
 
 
 @pytest.mark.parametrize("method", ["euler", "rk4"])
@@ -143,6 +186,9 @@ def test_wrappers_reject_what_the_kernel_does_not_take(rng):
         cr.launch_rollout(cr.row_consts(tp, 0.02), tau, x0, "rk4")
     with pytest.raises(ValueError, match="CUDA tensor"):
         cr.launch_tau_seq(cr.thruster_consts(tcfg, tlag), torch.zeros(3, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cr.launch_rollout_from_commands(cr.row_consts(tp, 0.02), cr.thruster_consts(tcfg, tlag),
+                                        torch.zeros(3, 8), x0, "rk4")
 
 
 @pytest.mark.cuda
@@ -172,6 +218,52 @@ def test_kernel_at_edge_shapes_on_card(T, B, cuda, rng):
     assert _build.launches["rollout_final"] == before + 1
     want = cr.rollout_rows_plain(p, tau, x0, 0.02, "rk4")
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_lag", [True, False])
+@pytest.mark.parametrize("T", (0,) + CHUNK_T)
+def test_rollout_from_commands_matches_plain_on_card(T, use_lag, cuda, rng):
+    """The main path's one C call: its tau_seq against the chunked plain
+    version; its xT against the plain rollout (up to 500 steps) and against
+    the K1 kernel stepped on the prologue kernel's own tau_seq."""
+    p, cfg, lag = (c.to(cuda) for c in _models()[1])
+    x0, U = (torch.from_numpy(a).to(cuda) for a in _inputs(rng, 300, T))
+    rc, tc = cr.row_consts(p, 0.02), cr.thruster_consts(cfg, lag)
+    tau = torch.full((T, 6), float("nan"), device=cuda)
+    before = dict(_build.launches)
+    got = cr.launch_rollout_from_commands(rc, tc, U, x0, "rk4", use_lag, tau=tau)
+    torch.cuda.synchronize()
+    assert _build.launches["rollout_final"] == before["rollout_final"] + 1
+    assert _build.launches["shared_tau"] == before["shared_tau"]   # no prologue launch
+    want_tau = cr.shared_tau_sequence_chunked(cfg, lag, U, use_lag)
+    np.testing.assert_allclose(tau.cpu().numpy(), want_tau.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    two = cr.launch_rollout(rc, cr.launch_tau_seq(tc, U, use_lag), x0, "rk4")
+    np.testing.assert_allclose(got.cpu().numpy(), two.cpu().numpy(), atol=2e-5)
+    if T <= 500:
+        want = cr.rollout_rows_plain(p, want_tau, x0, 0.02, "rk4")
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_rollout_from_commands_is_one_launch_in_one_wave_on_card(cuda):
+    """One kernel a call (the prologue folded into K1), 256 threads a block,
+    three resident an SM as K1 on a ready tau_seq: 65,536 trajectories in
+    one wave."""
+    block, per_sm = cr.rollout_commands_occupancy("rk4")
+    assert (block, per_sm) == cr.rollout_occupancy("rk4") == (256, 3)
+    from bluerov2_dynamics_tpu_torch.eval.timing import profile_calls
+    p, cfg, lag = (c.to(cuda) for c in _models()[1])
+    fn = cr.make_rollout_final_cuda(p, cfg, lag, 0.02, "rk4")
+    x0, U = torch.zeros((1000, 12), device=cuda), torch.zeros((300, 8), device=cuda)
+    # every device event of one call; a profile that traced nothing on the
+    # card is taken again, up to three times
+    for _ in range(3):
+        events, _ = profile_calls(lambda: fn(x0, U), calls=1)
+        if events:
+            break
+    kernels = [e.name for e in events]
+    assert len(kernels) == 1 and "rollout_commands_kernel" in kernels[0], kernels
 
 
 # --- the kernels' constant structs ------------------------------------------------

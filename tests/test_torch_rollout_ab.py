@@ -42,11 +42,14 @@ def _tree(tmp_path, **files):
 
 
 def test_this_checkout_exports_its_own_occupancy_queries():
-    """Every kernel but K6 has its own query (K4's and K5's report the plan
-    at a start count); K6 takes a shim at ``kRollThreads``."""
+    """Every kernel but K6 and the one-block tau prologue has its own query
+    (K4's and K5's report the plan at a start count); K6 takes a shim at
+    ``kRollThreads``."""
     plan = ab.tree_plan(CSRC)
     assert {k: (v[0].name, v[1], v[2]) for k, v in plan.items()} == {
         "rollout_final": ("rollout.cu", "rollout_kernel<1>", None),
+        "shared_tau": ("rollout.cu", "tau_seq_kernel", None),
+        "rollout_from_commands": ("rollout.cu", "rollout_commands_kernel<1>", None),
         "batched_rollout": ("batched_rollout.cu", "batched_rollout_kernel<1, true>", None),
         "window_eval": ("window_eval.cu", "window_eval_kernel<0, true>", None),
         "window_eval_wrench": ("window_eval.cu", "window_eval_wrench_kernel<0, false>", None),
@@ -206,3 +209,45 @@ def test_tweak_tree_changes_one_constant_in_a_copy(tmp_path, monkeypatch):
     assert list(ab.tree_plan(tree)) == ["window_eval", "window_eval_wrench", "window_sq_wrench"]
     with pytest.raises(ValueError, match="defined 0 times"):
         ab.tweak_tree("bad", "kNoSuchConstant=3")
+
+
+# K1 of the tree before the one-call sequence: the prologue kernel and the
+# rollout, each with its own launcher
+PARENT_ROLLOUT = """constexpr int kBlock = 256;
+__global__ void tau_seq_kernel(ThrusterConsts c, const float* U, float* F, float* tau, int T,
+                               int use_lag) {}
+template <int METHOD> __global__ void rollout_kernel(RowConsts k, int B, int T) {}
+int brov2_tau_seq(const void* consts, const float* U, float* F_scratch, float* tau,
+                  int T, int use_lag, void* stream) { return 0; }
+int brov2_rollout_final(const void* consts, const float* tau_seq, const float* x0, float* xT,
+                        int B, int T, int method, void* stream) { return 0; }
+int brov2_rollout_occupancy(int method, int* block, int* blocks_per_sm) { return 0; }
+"""
+
+
+def test_a_tree_without_the_one_call_sequence_has_its_prologue_and_rollout(tmp_path):
+    """Its U -> xT sequence is then its two launchers (``main`` composes
+    them); the prologue has no occupancy query and needs no block constant."""
+    plan = ab.tree_plan(_tree(tmp_path, **{"rollout.cu": PARENT_ROLLOUT}))
+    assert {k: v[1:] for k, v in plan.items()} == {
+        "rollout_final": ("rollout_kernel<1>", None), "shared_tau": ("tau_seq_kernel", None)}
+    with pytest.raises(ValueError, match="brov2_tau_seq takes 6 parameters"):
+        ab.tree_plan(_tree(tmp_path, **{"rollout.cu": PARENT_ROLLOUT.replace(
+            "float* F_scratch, ", "")}))
+
+
+def test_k1_sequence_and_prologue_name_their_mangled_functions():
+    assert ab.mangled_key("tau_seq_kernel") == "14tau_seq_kernel"
+    assert ab.mangled_key("rollout_commands_kernel<1>") == "23rollout_commands_kernelILi1EE"
+    text = (CSRC / "rollout.cu").read_text()
+    assert re.search(r"\btau_seq_kernel\(ThrusterConsts", text)
+    assert re.search(r"\brollout_commands_kernel\(RowConsts", text)
+
+
+def test_a_k1_residency_tweak_holds_all_three_of_its_kernels(tmp_path, monkeypatch):
+    monkeypatch.setattr(ab, "AB_DIR", tmp_path)
+    tree = ab.tweak_tree("two", "kCommandsMinBlocks=2")
+    assert "constexpr int kCommandsMinBlocks = 2;" in (tree / "rollout.cu").read_text()
+    assert sorted(f.name for f in tree.iterdir()) == ["fossen_rows.cuh", "rollout.cu",
+                                                     "window_rows.cuh"]
+    assert list(ab.tree_plan(tree)) == ["rollout_final", "shared_tau", "rollout_from_commands"]
