@@ -1,24 +1,36 @@
-"""Tank workload (T2): the Fossen physics baseline's endpoint evaluator.
+"""Tank workload (T2): Koopman identification on a tank recording.
 
-Counterpart of ``fossen_evaluator`` in
-``bluerov2_dynamics_tpu/apps/tank_koopman.py``.  The Koopman fit and the
-app's command line come with ROADMAP Queue 1 item 10 (the learned models).
+Counterpart of ``bluerov2_dynamics_tpu/apps/tank_koopman.py``: load the
+50 Hz tank CSV (thruster contract) or generate the pseudo recording
+(``--synthetic --recording``), fit Koopman with 500 RBFs / gamma=3 /
+ridge=0.1, report endpoint RMSE at H = 1/10/100, and roll the model open
+loop over 500 steps.  ``--physics-baseline`` also evaluates the Fossen
+model through the same evaluator (on the card: K2 fused, one launch a
+horizon).  Media wait for ROADMAP Queue 1 item 16, and the
+``--fossen-fit*`` flags for item 11: the app needs ``--no-media``.
+
+Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_koopman
+--synthetic --recording --steps 45823 --physics-baseline --no-media``.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from bluerov2_dynamics_tpu_torch.apps import common
+from bluerov2_dynamics_tpu_torch.data import csv_loader
 from bluerov2_dynamics_tpu_torch.device import resolve_device
 from bluerov2_dynamics_tpu_torch.eval import metrics
-from bluerov2_dynamics_tpu_torch.models import fossen
+from bluerov2_dynamics_tpu_torch.models import fossen, koopman
 from bluerov2_dynamics_tpu_torch.models.params import (
     fossen_params,
     lag_params,
     thruster_config,
 )
 from bluerov2_dynamics_tpu_torch.ops.cuda_eval import make_endpoint_sq_cuda
+from bluerov2_dynamics_tpu_torch.utils.log import info, ok
 
 
 def fossen_evaluator(dt, X_test, U_test, method="euler", p=None, cfg=None,
@@ -48,3 +60,69 @@ def fossen_evaluator(dt, X_test, U_test, method="euler", p=None, cfg=None,
             X_test, U_test, H,
         ),
     )
+
+
+def main(argv=None, device=None):
+    """The T2 workload; ``device=None`` means ``cuda``.  Returns the
+    open-loop ``pred`` and ``true`` arrays, the RMSE and timing tables
+    (``rmse``, ``warm_s``, ``cold_s``: name -> H -> value), the fit's
+    ``(cold, warm)`` seconds, the data's seconds, the model and the
+    train and test splits (host float64)."""
+    ap = common.base_parser(__doc__)
+    ap.add_argument("--physics-baseline", action="store_true")
+    ap.add_argument("--decoder", action="store_true",
+                    help="learn a linear decoder x ~ W z instead of the "
+                         "first-n-coordinates readout")
+    ap.add_argument("--save-model", type=str, default=None,
+                    help="save the fitted Koopman model (centers, gamma, "
+                         "A, B, optional decoder/weights) as .npz")
+    ap.add_argument("--load-model", type=str, default=None,
+                    help="load a saved model (this package's or the JAX "
+                         "package's .npz) instead of fitting")
+    args = ap.parse_args(argv)
+    common.require_no_media(args)
+    device = resolve_device(device)
+
+    t0 = time.perf_counter()
+    ds = common.load_or_generate(args, csv_loader.load_thruster_dataset, device)
+    data_s = time.perf_counter() - t0
+    train, test = csv_loader.train_test_split(ds, args.train_split)
+    info(f"Train: {len(train.X)} | Test: {len(test.X)}")
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    X_tr, U_tr = f32(train.X), f32(train.U)
+
+    if args.load_model:
+        info(f"Loading Koopman model: {args.load_model}")
+        model = koopman.load_model(args.load_model, device=device)
+        t_fit_cold = t_fit = 0.0
+    else:
+        model, t_fit_cold, t_fit = common.fit_koopman_from_args(
+            args, torch.Generator(device), X_tr, U_tr, loader=csv_loader.load_thruster_dataset)
+    common.summarize_fit("Koopman", t_fit_cold, t_fit)
+    if args.decoder:
+        model = koopman.fit_decoder(model, X_tr)
+        info("Learned linear decoder fitted (x ~ W z readout).")
+    if args.save_model:
+        koopman.save_model(args.save_model, model)
+        ok(f"Saved Koopman model -> {args.save_model}")
+
+    X_test, U_test = f32(test.X), f32(test.U)
+    k_method = common.koopman_method(args)
+    evaluators = {
+        "Koopman": lambda H: koopman.multistep_rmse(model, X_test, U_test, H, method=k_method),
+    }
+    if args.physics_baseline:
+        evaluators["Fossen (BlueROV2)"] = fossen_evaluator(float(ds.dt), test.X, test.U,
+                                                           device=device)
+    rmses, warm, cold = common.timed_metric_table(evaluators)
+
+    start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
+    pred = koopman.simulate(model, X_test[start], U_test[start:start + horizon])
+    ok("done")
+    return {"pred": pred.double().cpu().numpy(), "true": test.X[start:start + horizon + 1],
+            "rmse": rmses, "warm_s": warm, "cold_s": cold, "fit_s": (t_fit_cold, t_fit),
+            "data_s": data_s, "model": model, "train": train, "test": test}
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,8 @@
 
 The reference package's NamedTuples convert to the mapping these functions
 take with ``{k: np.asarray(v) for k, v in p._asdict().items()}``; fitted
-coefficients reach the port the same way.  Values keep their dtype unless
+coefficients reach the port the same way, and so do a fitted Koopman
+model's weights.  Values keep their dtype unless
 ``dtype`` is given.  This module imports no JAX.
 """
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from bluerov2_dynamics_tpu_torch.device import resolve_device
+from bluerov2_dynamics_tpu_torch.models.koopman import KoopmanModel
 from bluerov2_dynamics_tpu_torch.models.params import (
     FossenParams,
     LagParams,
@@ -42,3 +44,18 @@ def thruster_config_from_numpy(fields: Mapping, dtype=None, device=None) -> Thru
 
 def lag_params_from_numpy(fields: Mapping, dtype=None, device=None) -> LagParams:
     return _from_numpy(LagParams, fields, dtype, device)
+
+
+def koopman_model_from_numpy(fields: Mapping, dtype=None, device=None) -> KoopmanModel:
+    """A :class:`KoopmanModel` from the JAX model's arrays (``centers``,
+    ``gamma``, ``A``, ``B``; ``decoder`` and ``rbf_weights`` where present
+    and not None)."""
+    missing = {"centers", "gamma", "A", "B"} - set(fields)
+    if missing:
+        raise KeyError(f"KoopmanModel needs fields {sorted(missing)}")
+    device = resolve_device(device)
+    return KoopmanModel(*(
+        None if fields.get(k) is None
+        else torch.as_tensor(np.array(fields[k]), dtype=dtype, device=device)
+        for k in KoopmanModel._fields
+    ))

@@ -1,13 +1,108 @@
-"""Host-side conversions of the CSV data path (numpy).
+"""CSV dataset loaders with the reference column contracts (host numpy).
 
-Counterpart of ``euler_to_quat_np`` in
-``bluerov2_dynamics_tpu/data/csv_loader.py``.  The CSV loaders themselves
-come with a later slice of the port.
+Counterpart of ``bluerov2_dynamics_tpu/data/csv_loader.py``.  Three
+contracts share one cleaning pipeline (sort by t, de-duplicate timestamps,
+drop inf/NaN state rows, zero-fill missing input columns, median dt):
+
+* thruster:   state ``x..r`` (12) + inputs ``u1..u8``;
+* wrench:     state ``x..r`` (12) + inputs ``Fx..Mz``;
+* quaternion: state ``x,y,z,qw..qz,u..r`` (13) + inputs ``Fx..Mz``, with
+  legacy Euler CSVs converted to quaternions and every quaternion
+  renormalised.
+
+``pandas`` is imported only where a file is read (:func:`_read`), so a
+machine without it can import the loaders and the apps and run them on
+generated data.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+from typing import List, NamedTuple
+
 import numpy as np
+
+from bluerov2_dynamics_tpu_torch.utils.log import info, warn
+
+EULER12_COLS = ["x", "y", "z", "phi", "theta", "psi", "u", "v", "w", "p", "q", "r"]
+QUAT13_COLS = ["x", "y", "z", "qw", "qx", "qy", "qz", "u", "v", "w", "p", "q", "r"]
+THRUSTER_COLS = [f"u{i}" for i in range(1, 9)]
+WRENCH_COLS = ["Fx", "Fy", "Fz", "Mx", "My", "Mz"]
+
+
+class Dataset(NamedTuple):
+    X: np.ndarray   # (N, n) states
+    U: np.ndarray   # (N, r) inputs
+    t: np.ndarray   # (N,) time stamps
+    dt: float       # median sample period
+
+
+def find_project_root(start: Path, marker: str = "rosbags") -> Path:
+    """Walk up from ``start`` to the first directory containing ``marker``."""
+    p = Path(start).resolve()
+    for q in [p, *p.parents]:
+        if (q / marker).exists():
+            return q
+    return p
+
+
+def find_latest_csv(root: Path, name: str) -> Path:
+    """Newest-mtime file called ``name`` under ``root``."""
+    cands = sorted(
+        Path(root).rglob(name), key=lambda p: p.stat().st_mtime, reverse=True
+    )
+    if not cands:
+        raise FileNotFoundError(f"Could not find any '{name}' under: {root}")
+    return cands[0]
+
+
+def _clean_and_extract(
+    df, state_cols: List[str], input_cols: List[str], verbose: bool
+) -> Dataset:
+    """The shared cleaning pipeline on a ``pandas.DataFrame``."""
+    for c in state_cols:
+        if c not in df.columns:
+            raise ValueError(f"Missing state column: {c}")
+    for c in input_cols:
+        if c not in df.columns:
+            df[c] = 0.0
+    if "t" not in df.columns:
+        raise ValueError("CSV must contain a 't' time column.")
+    df = df.sort_values("t").drop_duplicates(subset="t")
+    df = df.replace([np.inf, -np.inf], np.nan).dropna(subset=state_cols)
+
+    # np.array(..., copy=True): pandas 3 (copy-on-write) may hand back
+    # read-only views from to_numpy()
+    X = np.array(df[state_cols].to_numpy(float))
+    U = np.array(df[input_cols].to_numpy(float))
+    t = np.array(df["t"].to_numpy(float))
+    dt = float(np.median(np.diff(t))) if len(t) > 1 else 0.05
+    if verbose:
+        info(
+            f"Samples: {len(df)} | median dt ≈ {dt:.5f}s"
+            f" (~{1.0 / max(dt, 1e-9):.2f} Hz)"
+        )
+    return Dataset(X=X, U=U, t=t, dt=dt)
+
+
+def _read(csv_path, verbose: bool):
+    import pandas as pd
+
+    if verbose:
+        info(f"Loading: {csv_path}")
+    if str(csv_path).endswith(".parquet"):
+        return pd.read_parquet(csv_path)
+    return pd.read_csv(csv_path)
+
+
+def load_thruster_dataset(csv_path, verbose: bool = True) -> Dataset:
+    """12-state + u1..u8 contract."""
+    return _clean_and_extract(_read(csv_path, verbose), EULER12_COLS, THRUSTER_COLS, verbose)
+
+
+def load_wrench_dataset(csv_path, verbose: bool = True) -> Dataset:
+    """12-state + Fx..Mz contract."""
+    return _clean_and_extract(_read(csv_path, verbose), EULER12_COLS, WRENCH_COLS, verbose)
 
 
 def euler_to_quat_np(phi, theta, psi) -> np.ndarray:
@@ -25,3 +120,34 @@ def euler_to_quat_np(phi, theta, psi) -> np.ndarray:
         axis=-1,
     )
     return q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+
+
+def load_quat_dataset(csv_path, verbose: bool = True) -> Dataset:
+    """13-state quaternion + Fx..Mz contract, with legacy-Euler conversion
+    and quaternion renormalisation."""
+    df = _read(csv_path, verbose)
+    has_euler = all(c in df.columns for c in ("phi", "theta", "psi"))
+    has_quat = all(c in df.columns for c in ("qw", "qx", "qy", "qz"))
+    if has_euler and not has_quat:
+        if verbose:
+            warn("Euler angles detected in dataset; converting to quaternions...")
+        q = euler_to_quat_np(
+            df["phi"].to_numpy(float),
+            df["theta"].to_numpy(float),
+            df["psi"].to_numpy(float),
+        )
+        df[["qw", "qx", "qy", "qz"]] = q
+    ds = _clean_and_extract(df, QUAT13_COLS, WRENCH_COLS, verbose)
+    q = ds.X[:, 3:7]
+    ds.X[:, 3:7] = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    return ds
+
+
+def train_test_split(ds: Dataset, train_frac: float = 0.8, causal_overlap: bool = False):
+    """Causal split; with ``causal_overlap`` the test range starts one
+    sample early (the simulation workload's ``split - 1``)."""
+    split = int(train_frac * len(ds.X))
+    start = split - 1 if causal_overlap else split
+    train = Dataset(ds.X[:split], ds.U[:split], ds.t[:split], ds.dt)
+    test = Dataset(ds.X[start:], ds.U[start:], ds.t[start:], ds.dt)
+    return train, test

@@ -51,6 +51,20 @@ def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 1, **kwargs):
     return result, (time.perf_counter() - t0) / max(iters, 1)
 
 
+def time_fn_cold_warm(fn: Callable, *args, iters: int = 1, **kwargs):
+    """Host-clock times of ``fn(*args, **kwargs)``: the first call (which
+    builds, compiles or warms caches) and the mean of ``iters`` calls
+    after it, each completion-forced by :func:`sync` (on the card a
+    synchronise).  Returns ``(result, cold_seconds, warm_seconds)``."""
+    t0 = time.perf_counter()
+    result = sync(fn(*args, **kwargs))
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(max(iters, 1)):
+        result = sync(fn(*args, **kwargs))
+    return result, cold, (time.perf_counter() - t0) / max(iters, 1)
+
+
 def cuda_event_time(fn: Callable, iters: int = 10, warmup: int = 1) -> float:
     """Device milliseconds per call of ``fn()``, averaged over ``iters``
     launches between two CUDA events on the current stream, after

@@ -6,6 +6,9 @@ from bluerov2_dynamics_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from bluerov2_dynamics_tpu_torch.parallel.sharded import (  # noqa: F401
     sharded_endpoint_rmse,
+    sharded_koopman_fit,
+    sharded_koopman_multistep_rmse,
     sharded_rollout_final,
+    sharded_streaming_stats,
     shardmap_endpoint_rmse,
 )

@@ -23,8 +23,12 @@ rank, as a JAX result is one global array.
   the kernels (or raise).  :func:`window_block_sq` keeps the unfused body
   (endpoints, then ``torch.sum``) for the card checks.
 
-The JAX package's sharded Koopman, streaming-statistics and filter-bank
-functions come with the modules they call.
+The sharded Koopman functions (:func:`sharded_koopman_multistep_rmse`,
+:func:`sharded_koopman_fit`, :func:`sharded_streaming_stats`) are the JAX
+package's, with the collectives XLA would insert written out: an
+all-gather of the lifted state's column blocks, and all-reduces of Gram,
+right-hand side and squared-error sums.  The filter banks come with the
+estimation module.
 """
 
 from __future__ import annotations
@@ -40,8 +44,12 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_eval import (
     make_endpoint_sq_cuda,
     make_endpoint_sq_cuda_wrench,
 )
+from bluerov2_dynamics_tpu_torch.models import koopman
 from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_sq_cuda_quat
-from bluerov2_dynamics_tpu_torch.parallel.mesh import axis
+from bluerov2_dynamics_tpu_torch.ops.kmeans import kmeans
+from bluerov2_dynamics_tpu_torch.ops.lifting import rbf_lift
+from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
+from bluerov2_dynamics_tpu_torch.parallel.mesh import axis, replicate
 
 
 def _nan(X):
@@ -196,3 +204,152 @@ def shardmap_endpoint_rmse_cuda_quat(mesh: DeviceMesh, p, X, TAU, dt: float, H: 
     per-rank body.  No ``block_b`` or ``interpret``, as above."""
     fn = make_endpoint_sq_cuda_quat(p, dt, H, method, renormalize)
     return shardmap_window_rmse(mesh, fn, X, TAU, H, data_axis)
+
+
+# --- Koopman --------------------------------------------------------------------
+
+def _gather_columns(block, widths, group):
+    """The whole ``(m, sum(widths))`` matrix from each rank's column block
+    (``widths[i]`` columns on rank i of ``group``), padded for the
+    all-gather and trimmed after it."""
+    padded = block.new_zeros((block.shape[0], max(widths)))
+    padded[:, :block.shape[1]] = block
+    parts = [torch.empty_like(padded) for _ in widths]
+    dist.all_gather(parts, padded, group=group)
+    return torch.cat([p[:, :w] for p, w in zip(parts, widths)], dim=1)
+
+
+@full_f32()
+def sharded_koopman_multistep_rmse(mesh: DeviceMesh, model, X, U, H: int,
+                                   data_axis: str = "data", model_axis: str = "model",
+                                   method: str = "scan"):
+    """Endpoint H-step Koopman RMSE over all N-H starts, on a 2-D mesh:
+    the starts split over ``data_axis``, the rows of the ``(d, d)``
+    operator ``A`` (the lifted state's columns) over ``model_axis``.
+
+    Each rank holds the replicated model and computes its column block of
+    the propagated lifted state for its block of starts.  ``"scan"``
+    all-gathers the blocks over ``model_axis`` after every step (one
+    all-gather a step); ``"conv"`` computes its block of the endpoint as
+    one control-convolution GEMM and all-gathers once.  The squared errors
+    and counts are all-reduced over ``data_axis``.  Same semantics as
+    ``models.koopman.multistep_rmse``; ``N <= H`` gives NaN.
+    """
+    if method not in ("scan", "conv"):
+        raise ValueError(f"method must be 'scan' or 'conv', got {method!r}")
+    n_start = X.shape[0] - H
+    if n_start <= 0:
+        return _nan(X)
+    dgroup, dsize, didx = axis(mesh, data_axis)
+    mgroup, msize, midx = axis(mesh, model_axis)
+    lo, hi = _block(n_start, dsize, didx)
+    d = model.lift_dim
+    widths = [b - a for a, b in (_block(d, msize, i) for i in range(msize))]
+    c0, c1 = _block(d, msize, midx)
+    A_T, B_T = model.A.T, model.B.T
+    Z = koopman.lift(model, X[lo:hi])
+    if H > 0 and method == "conv":
+        Z = _gather_columns(koopman._endpoint_conv(Z, U[lo:], A_T, B_T, H, hi - lo,
+                                                   cols=slice(c0, c1)), widths, mgroup)
+    else:
+        for t in range(H):
+            Z = _gather_columns(Z @ A_T[:, c0:c1] + U[lo + t:hi + t] @ B_T[:, c0:c1],
+                                widths, mgroup)
+    diff = koopman.decode(model, Z) - X[H + lo:H + hi]
+    total = torch.stack([torch.sum(diff * diff),
+                         torch.tensor(diff.numel(), dtype=diff.dtype, device=diff.device)])
+    dist.all_reduce(total, group=dgroup)
+    return torch.sqrt(total[0] / total[1])
+
+
+@full_f32()
+def sharded_koopman_fit(mesh: DeviceMesh, generator, X, U, n_rbfs: int = 200,
+                        gamma: float = 1.0, ridge: float = 1e-8, kmeans_iters: int = 25,
+                        data_axis: str = "data", position_invariant: bool = False,
+                        fit_decoder: bool = False, decoder_ridge: float = 1e-6, init=None):
+    """Koopman EDMDc fit with the snapshot pairs split over ``data_axis``.
+
+    k-means runs on every rank and the first rank's centers are broadcast,
+    so all ranks lift with the same dictionary.  Each rank forms the float64
+    Gram ``G^T G`` and cross term ``G^T Y`` of its contiguous block of pairs
+    (``models.koopman._gram``); an
+    all-reduce sums them and the small ``(d+r)^2`` solve is replicated.
+    ``position_invariant`` and ``fit_decoder`` (relative ``decoder_ridge``,
+    the decoder's Gram summed the same way over row blocks of ``X``) as in
+    ``models.koopman.fit`` and ``fit_decoder``.
+    """
+    group, size, index = axis(mesh, data_axis)
+    weights = koopman._position_mask(X) if position_invariant else None
+    X_cl = X * weights if weights is not None else X
+    centers, _ = kmeans(X_cl, n_rbfs, kmeans_iters, generator, init)
+    centers = replicate(mesh, centers)
+    gamma = torch.as_tensor(gamma, dtype=X.dtype, device=X.device)
+    lo, hi = _block(X.shape[0] - 1, size, index)
+    Z = rbf_lift(X[lo:hi], centers, gamma, weights)
+    Zp = rbf_lift(X[lo + 1:hi + 1], centers, gamma, weights)
+    gram, rhs = koopman._gram(torch.cat([Z, U[lo:hi]], dim=1), Zp)
+    dist.all_reduce(gram, group=group)
+    dist.all_reduce(rhs, group=group)
+    M = koopman._solve_normal_eqns(gram, rhs, ridge).to(X.dtype)
+    d = Z.shape[1]
+    decoder = None
+    if fit_decoder:
+        lo, hi = _block(X.shape[0], size, index)
+        gram_d, rhs_d = koopman._gram(rbf_lift(X[lo:hi], centers, gamma, weights), X[lo:hi])
+        dist.all_reduce(gram_d, group=group)
+        dist.all_reduce(rhs_d, group=group)
+        scale = torch.mean(torch.diagonal(gram_d))
+        decoder = koopman._solve_normal_eqns(gram_d, rhs_d, decoder_ridge * scale).T.to(X.dtype)
+    return koopman.KoopmanModel(centers=centers, gamma=gamma, A=M[:d].T, B=M[d:].T,
+                                decoder=decoder, rbf_weights=weights)
+
+
+@full_f32()
+def sharded_streaming_stats(mesh: DeviceMesh, stats0, X, U, chunk: int = 1024,
+                            forgetting: float = 1.0, data_axis: str = "data"):
+    """Accumulate Koopman streaming statistics with the recording split
+    over ``data_axis`` in contiguous blocks (the multi-rank form of
+    ``models.koopman.streaming_scan``).
+
+    Each rank runs the chunk loop over its block, its carry seeded with a
+    one-row halo (its left neighbour's last row), so the pairs are the
+    single-rank scan's.  With ``forgetting < 1`` each rank's statistics are
+    decayed by ``lam^(pairs downstream of it)`` before the all-reduce, so
+    the sum equals the sequential scan up to summation order.  ``stats0``
+    may carry earlier data: its ``prev_*`` seed rank 0 and its Gram decays
+    by ``lam^M``, M the pairs added here.  ``X.shape[0]`` must divide by the
+    axis size.
+    """
+    N = X.shape[0]
+    group, S, idx = axis(mesh, data_axis)
+    if N % S != 0:
+        raise ValueError(f"N={N} not divisible by mesh axis {S}")
+    m = N // S
+    dtype, device = stats0.gram.dtype, stats0.gram.device
+    X = torch.as_tensor(X, dtype=dtype, device=device)
+    U = torch.as_tensor(U, dtype=dtype, device=device)
+    lam = torch.as_tensor(forgetting, dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+    if idx == 0:
+        prev = (stats0.prev_z, stats0.prev_u, stats0.prev_valid)
+    else:
+        halo = X[idx * m - 1:idx * m]
+        prev = (rbf_lift(halo, stats0.centers, stats0.gamma, stats0.rbf_weights)[0],
+                U[idx * m - 1], one)
+    s = stats0._replace(gram=torch.zeros_like(stats0.gram), rhs=torch.zeros_like(stats0.rhs),
+                        weight_sum=torch.zeros_like(stats0.weight_sum), prev_z=prev[0],
+                        prev_u=prev[1], prev_valid=prev[2])
+    s = koopman.streaming_scan(s, X[idx * m:(idx + 1) * m], U[idx * m:(idx + 1) * m], chunk, lam)
+    decay = lam ** float((S - 1 - idx) * m)        # every rank downstream adds m pairs
+    gram, rhs, wsum = s.gram * decay, s.rhs * decay, s.weight_sum * decay
+    for t in (gram, rhs, wsum):
+        dist.all_reduce(t, group=group)
+    carry_decay = lam ** ((N - 1) + stats0.prev_valid)
+    return stats0._replace(
+        gram=carry_decay * stats0.gram + gram,
+        rhs=carry_decay * stats0.rhs + rhs,
+        weight_sum=carry_decay * stats0.weight_sum + wsum,
+        prev_z=rbf_lift(X[-1:], stats0.centers, stats0.gamma, stats0.rbf_weights)[0],
+        prev_u=U[-1],
+        prev_valid=one,
+    )

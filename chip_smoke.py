@@ -23,6 +23,20 @@ Phases (any failure raises and ends the run with a non-zero code):
    two forms, fails the run;
 3. main paths, each with every launch count set to 0 just before it and
    read just after; each must have launched its kernels:
+   - the Koopman apps (:func:`koopman_apps`): T2 ``apps.tank_koopman.main``
+     on the pseudo tank recording (45,823 steps made by the CUDA-graph
+     generator, 500 RBFs, the Fossen baseline on K2 fused: one launch a
+     call, cold and warm at H = 1, 10, 100), then with ``--koopman-conv``,
+     a 3 x 3 ``--sweep`` and ``--streaming-chunk 1024`` on the same
+     recording; T1 ``apps.sim_koopman.main`` at its defaults (48,000
+     steps, 200 RBFs).  Checked: the generator against its eager loop bit
+     for bit over its first two chunks, finite data, the Koopman RMSEs
+     against the same port functions in float64 on the host CPU (on the
+     card's data and centers), conv against scan, a NaN model from a Gram
+     that is not positive definite skipped by ``select_best``, and TF32
+     off inside the Koopman calls with the caller's TF32 on.  Timed: the
+     generator (graph and eager), the fits cold and warm, the multistep
+     RMSE at each H by scan and conv, the sweep and the streaming fit;
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
      ``make_rollout_final_cuda``: one C call, one kernel (the profiler
      counts its device events);
@@ -73,8 +87,8 @@ Phases (any failure raises and ends the run with a non-zero code):
    is held by its increment, the mix probe at both quat13 budgets);
 8. the measured ceilings of K1-K7 from the probes' rates, and the
    measured price of one sinf and one rsqrtf in FMA-tree flops;
-9. one JSON line ``{"kernels": [...]}``, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. a ``koopman apps:`` JSON line, one JSON line ``{"kernels": [...]}``,
+   then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -94,6 +108,19 @@ B_ROLL, T_ROLL = 65_536, 500        # bench.py run_pallas / sec_quat_rollout sha
 N_REC = 9_165                       # the tank recording's test split
 H_APP = (1, 10, 100)
 N_LARGE = 44_800                    # full-recording start count
+T2_STEPS = 45_823                   # the pseudo tank recording (apps.tank_koopman --recording)
+T2_ARGS = ["--synthetic", "--recording", "--steps", str(T2_STEPS), "--physics-baseline",
+           "--no-media"]
+T1_ARGS = ["--no-media"]            # apps.sim_koopman at its defaults: 48,000 steps, 200 RBFs
+SWEEP_ARGS = ["--sweep", "--sweep-gammas", "1", "3", "10", "--sweep-ridges", "1e-3", "1e-2", "1e-1"]
+EAGER_CHUNKS = 2                    # graph chunks held against the eager loop bit for bit
+# The Koopman RMSEs on the card (float32 k-means, lifts and propagation; the
+# normal equations in float64) against the same port functions in float64
+# on the host CPU, on the card's data and centers: measured on the H100 at
+# most 5.3e-4 (T2, H=100) and 1.7e-5 (T1); held at ten times the larger.
+# Scan against conv on the card: reassociation only (measured 4.4e-4).
+KOOP_RTOL = 5e-3
+CONV_RTOL = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 # The bounds price the audited step counts (eval/op_counts.py) at these
@@ -338,6 +365,179 @@ def device_busy_share(fn):
     return busy / wall_us
 
 
+def koopman_apps(dev, card, drive) -> dict:
+    """The Koopman apps T2 (``tank_koopman``: the pseudo recording at its
+    full 45,823 steps, 500 RBFs, the Fossen baseline on K2 fused; then
+    ``--koopman-conv``, a 3 x 3 ``--sweep`` and ``--streaming-chunk 1024``
+    on the same recording) and T1 (``sim_koopman`` at its defaults), each
+    with the launch counts set to 0 before and read after, and their
+    checks: the CUDA-graph generator against the eager loop bit for bit
+    over its first chunks, finite data, the RMSEs against the same port
+    functions in float64 on the host CPU, conv against scan, a Gram that
+    is not positive definite giving a NaN model that ``select_best``
+    skips, and TF32 off inside the Koopman calls."""
+    from bluerov2_dynamics_tpu_torch.apps import sim_koopman, tank_koopman
+    from bluerov2_dynamics_tpu_torch.data import synthetic
+    from bluerov2_dynamics_tpu_torch.eval.timing import host_ms, profile_calls
+    from bluerov2_dynamics_tpu_torch.models import koopman
+    from bluerov2_dynamics_tpu_torch.ops import precision
+
+    out, counts = {}, {}
+    cpu = torch.device("cpu")
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cpu)  # noqa: E731
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+
+    def eager_check(name, runs, rows):
+        """The eager loop on the card over the first chunks, against the
+        graph-made rows: the same bits."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = runs()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for field, want in rows.items():
+            got = getattr(sim, field).double().cpu().numpy()
+            if not np.array_equal(got, want[:got.shape[0]]):
+                fail(f"{name}: the CUDA-graph generator's {field} differs from the eager loop's "
+                     f"over its first {EAGER_CHUNKS} chunks "
+                     f"(max {np.abs(got - want[:got.shape[0]]).max():.3e})")
+        print(f"{name}: the CUDA-graph generator equals the eager loop bit for bit over its first "
+              f"{sim.X.shape[0]} steps; eager {secs:.3f} s for them ({1e3 * secs / sim.X.shape[0]:.4f}"
+              f" ms a step) [{card}]")
+        return secs / sim.X.shape[0]
+
+    def host_check(app, got, model, train, test, n_rbfs, gamma, ridge):
+        """The card's RMSEs against the port's functions in float64 on the
+        host CPU, on the card's data and centers."""
+        t0 = time.perf_counter()
+        m64 = koopman.fit(None, f64(train.X), f64(train.U), n_rbfs, gamma, ridge, 0,
+                          init=model.centers.double().cpu())
+        Xt, Ut = f64(test.X), f64(test.U)
+        rel = {}
+        for H in H_APP:
+            want = float(koopman.evaluate(m64, Xt, Ut) if (app == "T1" and H == 1)
+                         else koopman.multistep_rmse(m64, Xt, Ut, H))
+            rel[H] = abs(got[H] - want) / abs(want)
+            print(f"{app} Koopman H={H}: card (float32) {got[H]:.6f}, host CPU (float64) {want:.6f}, "
+                  f"rel {rel[H]:.3e} (rtol {KOOP_RTOL:g})")
+            if not rel[H] <= KOOP_RTOL:
+                fail(f"{app} Koopman RMSE at H={H}: {got[H]} on the card vs {want} in float64")
+        print(f"{app}: float64 host check {time.perf_counter() - t0:.1f} s")
+        return rel
+
+    # --- T2 ------------------------------------------------------------------------
+    t2 = drive("T2 app (tank_koopman.main)", ("window_sq",),
+               lambda: tank_koopman.main(T2_ARGS, device=dev), into=counts)
+    # each horizon's baseline call is timed cold and warm: one launch a call
+    if counts["window_sq"] != 2 * len(H_APP):
+        fail(f"T2 app: {counts['window_sq']} K2 launches, not one a call of the Fossen row "
+             f"(3 horizons, cold and warm)")
+    train, test = t2["train"], t2["test"]
+    for part in (train, test):
+        if not (np.isfinite(part.X).all() and np.isfinite(part.U).all()):
+            fail("T2: the generated recording is not finite")
+    if test.X.shape != (N_REC, 12) or train.X.shape != (T2_STEPS - N_REC, 12):
+        fail(f"T2 split {train.X.shape} / {test.X.shape}")
+    n_eager = EAGER_CHUNKS * synthetic.GRAPH_CHUNK
+    draws = synthetic.tank_recording_draws(0, T2_STEPS)
+    first = {k: (v[:n_eager] if v.dim() == 2 else v) for k, v in draws.items()}
+    eager_step = eager_check("T2 generator", lambda: synthetic.generate_tank_recording_from_draws(
+        first, dt=DT, device=dev, graph=False), {"X": train.X, "U": train.U})
+    # device events a step of the generator (the profiler, eager 1 and 11 steps)
+    n_events = [len(profile_calls(lambda: synthetic.generate_tank_recording_from_draws(
+        {k: (v[:n] if v.dim() == 2 else v) for k, v in draws.items()}, dt=DT, device=dev,
+        graph=False), calls=1)[0]) for n in (1, 11)]
+    kernels_a_step = (n_events[1] - n_events[0]) / 10 if n_events[0] else None
+    print(f"T2 generator: {kernels_a_step} device events a step (the profiler: {n_events} for 1 "
+          f"and 11 eager steps)")
+    model = t2["model"]
+    rmse = {H: t2["rmse"]["Koopman"][H] for H in H_APP}
+    rel = host_check("T2", rmse, model, train, test, 500, 3.0, 0.1)
+    X_te, U_te = f32(test.X), f32(test.U)
+    ms = {"scan": {}, "conv": {}}
+    for H in H_APP:
+        conv = float(koopman.multistep_rmse(model, X_te, U_te, H, method="conv"))
+        close(conv, rmse[H], CONV_RTOL, f"T2 Koopman H={H}: conv vs scan on the card")
+        for method in ms:
+            t = host_ms(lambda: koopman.multistep_rmse(model, X_te, U_te, H, method=method),
+                        calls=5)
+            ms[method][H] = sorted(t)[len(t) // 2]
+    print("T2 multistep_rmse, median of 5 synchronised calls, ms: " + "; ".join(
+        f"{m} " + ", ".join(f"H={H} {v:.4f}" for H, v in d.items()) for m, d in ms.items())
+        + f" [{card}]")
+    # TF32 on at the caller: the Koopman calls pin it off and restore it
+    prev = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    seen, real_rmse = [], koopman.rmse
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        Z = koopman.lift(model, X_te)
+        tf32_moves = float((Z @ model.A.T - (Z.double() @ model.A.double().T).float()).abs().max())
+        koopman.rmse = lambda a, b: (seen.append(precision.tf32_enabled()), real_rmse(a, b))[1]
+        under = float(koopman.multistep_rmse(model, X_te, U_te, 10))
+        restored = precision.tf32_enabled()
+    finally:
+        koopman.rmse = real_rmse
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+    with precision.full_f32():
+        Zf = koopman.lift(model, X_te)
+        f32_err = float((Zf @ model.A.T - (Zf.double() @ model.A.double().T).float()).abs().max())
+    print(f"TF32: inside multistep_rmse tf32_enabled() = {seen}, after it {restored}; H=10 with "
+          f"the caller's TF32 on {under:.9g} vs {rmse[10]:.9g}; one Z @ A^T against float64: "
+          f"{tf32_moves:.3e} with TF32, {f32_err:.3e} in full float32")
+    if seen != [False] or not restored or under != rmse[10]:
+        fail("TF32 was not pinned off inside the Koopman call, or not restored after it")
+    # a Gram that is not positive definite: NaN model, skipped by select_best
+    k_nan = 64
+    Xs, Us = f32(train.X[:4096]), f32(train.U[:4096])
+    models, combos = koopman.fit_sweep(None, Xs, Us, k_nan, (3.0,), (0.1, -1e6), 0,
+                                       init=model.centers[:k_nan])
+    best, combo, rm = koopman.select_best(models, combos, X_te, U_te, 10)
+    nan_rows = torch.isnan(models.A).reshape(2, -1).all(1).tolist()
+    print(f"NaN guard on the card: ridges (0.1, -1e6) -> NaN models {nan_rows}, RMSEs "
+          f"{rm.tolist()}, select_best keeps ridge {float(combo[1]):g}")
+    if nan_rows != [False, True] or not torch.equal(combo, combos[0]) or not bool(torch.isnan(rm[1])):
+        fail("a Gram that is not positive definite did not give a NaN model skipped by select_best")
+    runs = {}
+    for label, extra in (("conv", ["--koopman-conv"]), ("sweep", SWEEP_ARGS),
+                         ("streaming", ["--streaming-chunk", "1024"])):
+        r = drive(f"T2 app {label}", ("window_sq",),
+                  lambda: tank_koopman.main(T2_ARGS + extra, device=dev), into={})
+        runs[label] = dict(rmse=r["rmse"]["Koopman"], fit_s=r["fit_s"], data_s=r["data_s"])
+        if not all(np.isfinite(v) for v in r["rmse"]["Koopman"].values()):
+            fail(f"T2 {label}: a Koopman RMSE is not finite")
+    out["T2"] = dict(
+        steps=T2_STEPS, data_s=t2["data_s"], graph_ms_a_step=1e3 * t2["data_s"] / T2_STEPS,
+        eager_ms_a_step=1e3 * eager_step, kernels_a_step=kernels_a_step, fit_s=t2["fit_s"],
+        rmse=rmse,
+        fossen_rmse=t2["rmse"]["Fossen (BlueROV2)"], warm_s=t2["warm_s"], cold_s=t2["cold_s"],
+        rel_vs_float64=rel, multistep_ms=ms, k2_launches=counts["window_sq"], runs=runs,
+        tf32_matmul_err=tf32_moves, f32_matmul_err=f32_err)
+    print(f"T2: generator (graph) {t2['data_s']:.2f} s for {T2_STEPS} steps, eager "
+          f"{1e3 * eager_step:.4f} ms a step; fit cold {t2['fit_s'][0]:.3f} / warm "
+          f"{t2['fit_s'][1]:.3f} s; sweep 3x3 cold {runs['sweep']['fit_s'][0]:.3f} / warm "
+          f"{runs['sweep']['fit_s'][1]:.3f} s; streaming cold {runs['streaming']['fit_s'][0]:.3f}"
+          f" / warm {runs['streaming']['fit_s'][1]:.3f} s [{card}]")
+
+    # --- T1 ------------------------------------------------------------------------
+    t1 = sim_koopman.main(T1_ARGS, device=dev)
+    tr1, te1 = t1["train"], t1["test"]
+    if not (np.isfinite(tr1.X).all() and np.isfinite(te1.X).all()):
+        fail("T1: the generated dataset is not finite")
+    sim_draws = synthetic.sim_dataset_draws(0, 48_000)
+    eager1 = eager_check("T1 generator", lambda: synthetic.generate_sim_dataset_from_draws(
+        {k: v[:n_eager] for k, v in sim_draws.items()}, dt=0.05, device=dev, graph=False),
+        {"X": tr1.X, "U": tr1.U})
+    rel1 = host_check("T1", t1["rmse"], t1["model"], tr1, te1, 200, 1.0, 1e-3)
+    out["T1"] = dict(steps=48_000, data_s=t1["data_s"], graph_ms_a_step=1e3 * t1["data_s"] / 48_000,
+                     eager_ms_a_step=1e3 * eager1, fit_s=t1["fit_s"], rmse=t1["rmse"],
+                     rel_vs_float64=rel1)
+    print(f"T1: generator (graph) {t1['data_s']:.2f} s for 48000 steps, eager {1e3 * eager1:.4f} "
+          f"ms a step; fit {t1['fit_s']:.3f} s (one cold fit) [{card}]")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -397,6 +597,27 @@ def main() -> None:
                          .astype(np.float32)).to(dev)
     p, cfg, lag = fossen_params(device=dev), thruster_config(device=dev), lag_params(DT, device=dev)
 
+    launches = {}
+
+    def drive(phase, names, fn, into=launches):
+        """Run ``fn`` with the launch counts set to 0 just before and read
+        just after into ``into``; every kernel of ``names`` must have
+        launched."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {n: _build.launches[n] for n in names}
+        print(f"{phase}: launches {counts}")
+        for n, c in counts.items():
+            if c < 1:
+                fail(f"kernel {n} was not launched on the {phase} path")
+        into.update(counts)
+        return out
+
+    # the Koopman apps T2 and T1 at full size
+    apps = koopman_apps(dev, card, drive)
+
     # the recording: the port's own simulator on the card, plus sensor noise
     t0 = time.perf_counter()
     U_rec = torch.from_numpy(ar1_commands(rng, N_REC)).to(dev)
@@ -421,24 +642,6 @@ def main() -> None:
     TAUq = torch.from_numpy((3.0 * rng.normal(size=(T_ROLL, 6))).astype(np.float32)).to(dev)
     Ub = torch.from_numpy(np.clip(0.5 * rng.standard_normal((T_ROLL, B_ROLL, 8), dtype=np.float32),
                                   -1, 1)).to(dev)
-
-    launches = {}
-
-    def drive(phase, names, fn, into=launches):
-        """Run ``fn`` with the launch counts set to 0 just before and read
-        just after into ``into``; every kernel of ``names`` must have
-        launched."""
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {n: _build.launches[n] for n in names}
-        print(f"{phase}: launches {counts}")
-        for n, c in counts.items():
-            if c < 1:
-                fail(f"kernel {n} was not launched on the {phase} path")
-        into.update(counts)
-        return out
 
     roll = cr.make_rollout_final_cuda(p, cfg, lag, DT, "rk4")
     xT = drive("K1 rollout", ("rollout_final",), lambda: roll(x0, U))
@@ -1154,6 +1357,7 @@ def main() -> None:
         kernels.append(entry)
     print(f"measured prices: " + json.dumps({"sinf_flops": sin_price, "rsqrtf_flops": rsqrt_price,
                                               "fma_tree_share_of_peak": tree / FP32_PEAK}))
+    print("koopman apps: " + json.dumps(apps, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

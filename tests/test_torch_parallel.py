@@ -10,7 +10,9 @@ end of the module.  Inputs are made with numpy from a seed
 
 Tolerances: rtol 1e-5 for the float32 window evaluators (the dry run's,
 ``__graft_entry__.py:298-351``); rtol 1e-9 and atol 1e-10 for the float64
-step loops (``tests/test_parallel.py:32-66``).
+step loops (``tests/test_parallel.py:32-66``) and for the float64 sharded
+Koopman functions, held against the JAX package's single-device
+``multistep_rmse``, fit solve and ``streaming_scan``.
 """
 
 import time
@@ -24,13 +26,16 @@ import torch.distributed as dist
 
 import torch_rank_checks as trc
 from bluerov2_dynamics_tpu.eval import metrics as jmetrics
+from bluerov2_dynamics_tpu.models import koopman as jk
 from bluerov2_dynamics_tpu.models import fossen as jfossen
 from bluerov2_dynamics_tpu.models import params as jparams
 from bluerov2_dynamics_tpu.ops import pallas_eval as jpe
+from bluerov2_dynamics_tpu.ops import lifting as jlift
 from bluerov2_dynamics_tpu.ops import pallas_quat as jpq
 from bluerov2_dynamics_tpu.parallel import mesh as jmesh
 from bluerov2_dynamics_tpu.parallel import sharded as jsharded
 from bluerov2_dynamics_tpu_torch.eval.metrics import rmse
+from bluerov2_dynamics_tpu_torch.models import koopman as tk
 from bluerov2_dynamics_tpu_torch.models import params as tparams
 from bluerov2_dynamics_tpu_torch.ops import _build
 from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
@@ -214,6 +219,80 @@ def test_replicate_broadcasts_the_first_rank_and_leaves_the_input(four_ranks):
 def test_make_mesh_rejects_a_shape_that_misses_the_world(four_ranks):
     assert all(r["mesh_bad_shape"] == "mesh shape (3,) does not cover 4 ranks"
                for r in four_ranks)
+
+
+def _jax_koopman_model(d):
+    return jk.KoopmanModel(centers=_j(d["koop_C"]), gamma=jnp.asarray(trc.KOOP_GAMMA),
+                           A=_j(d["koop_A"]), B=_j(d["koop_B"]))
+
+
+@pytest.mark.parametrize("method", ["scan", "conv"])
+def test_sharded_koopman_multistep_rmse_matches_jax(method, four_ranks, data):
+    """2 x 2 mesh: 89 starts over 'data', A's 15 rows 8/7 over 'model'."""
+    model = _jax_koopman_model(data)
+    X, U = _j(data["koop_X"]), _j(data["koop_U"])
+    for H in (0, 1, trc.KOOP_H):
+        want = float(jk.multistep_rmse(model, X, U, H, method=method))
+        for r in four_ranks:
+            np.testing.assert_allclose(r[f"koop_ms_{method}_H{H}"], want, **TOL64)
+    assert all(np.isnan(r[f"koop_ms_{method}_nan"]) for r in four_ranks)
+
+
+@pytest.mark.parametrize("pi", [False, True])
+def test_sharded_koopman_fit_matches_jax(pi, four_ranks, data):
+    """Pairs split 24/24/24/23 over 'data'; the JAX fit's solve on the same
+    centers (and its decoder without the position mask)."""
+    X, U = _j(data["koop_X"]), _j(data["koop_U"])
+    w = jnp.asarray([0.0, 0.0, 0.0, 1.0]) if pi else None
+    C = _j(data["koop_C"]) * (w if pi else 1.0)
+    lift = lambda Z: jlift.rbf_lift(Z, C, trc.KOOP_GAMMA, w)  # noqa: E731
+    want = jk._fit_from_blocks(lift(X[:-1]), lift(X[1:]), U[:-1], C, trc.KOOP_GAMMA,
+                               trc.KOOP_RIDGE)._replace(rbf_weights=w)
+    if not pi:
+        want = jk.fit_decoder(want, X)
+    for r in four_ranks:
+        got = r[f"koop_fit_pi{int(pi)}"]
+        for f in want._fields:
+            if getattr(want, f) is None:
+                assert got[f] is None, f
+            else:
+                np.testing.assert_allclose(got[f], np.asarray(getattr(want, f)), **TOL64,
+                                           err_msg=f)
+
+
+@pytest.mark.parametrize("lam", trc.KOOP_LAMS)
+def test_sharded_streaming_stats_match_the_jax_scan(lam, four_ranks, data):
+    """24 rows a rank in chunks of 10, on statistics that hold a prior
+    segment; the halos and the downstream decay give the single-device
+    scan's pairs and weights."""
+    X, U = _j(data["koop_X"]), _j(data["koop_U"])
+    s0 = jk.streaming_update(jk.streaming_init(_j(data["koop_C"]), trc.KOOP_GAMMA, 2,
+                                               dtype=jnp.float64),
+                             _j(data["koop_X_prior"]), _j(data["koop_U_prior"]), lam)
+    want = jk.streaming_scan(s0, X, U, 10, lam)
+    for r in four_ranks:
+        got = r[f"koop_stream_{lam}"]
+        for f in ("gram", "rhs", "weight_sum", "prev_z", "prev_u", "prev_valid", "centers"):
+            np.testing.assert_allclose(got[f], np.asarray(getattr(want, f)), **TOL64, err_msg=f)
+        assert r["koop_stream_indivisible"] == f"N={trc.KOOP_N - 1} not divisible by mesh axis 4"
+
+
+def test_world1_sharded_koopman_equals_the_single_device_functions(mesh1, data):
+    d = {k: torch.from_numpy(v) for k, v in data.items()}
+    model, X, U = trc.koopman_model(d), d["koop_X"], d["koop_U"]
+    mesh2 = pmesh.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    for method in ("scan", "conv"):
+        np.testing.assert_allclose(
+            float(sharded.sharded_koopman_multistep_rmse(mesh2, model, X, U, 5, method=method)),
+            float(tk.multistep_rmse(model, X, U, 5, method=method)), **TOL64)
+    got = sharded.sharded_koopman_fit(mesh1, None, X, U, trc.KOOP_K, trc.KOOP_GAMMA,
+                                      trc.KOOP_RIDGE, 0, init=d["koop_C"])
+    want = tk.fit(None, X, U, trc.KOOP_K, trc.KOOP_GAMMA, trc.KOOP_RIDGE, 0, init=d["koop_C"])
+    np.testing.assert_allclose(got.A.numpy(), want.A.numpy(), **TOL64)
+    s0 = trc.koopman_stats0(d, 0.97)
+    got = sharded.sharded_streaming_stats(mesh1, s0, X, U, 10, 0.97)
+    want = tk.streaming_scan(s0, X, U, 10, 0.97)
+    np.testing.assert_allclose(got.gram.numpy(), want.gram.numpy(), **TOL64)
 
 
 # --- the rank launcher ----------------------------------------------------------

@@ -17,6 +17,8 @@ WORLD = 4
 H_WINDOW = 10                      # __graft_entry__.dryrun_multichip stages 5 and 6
 N_WINDOW = 32 * WORLD + H_WINDOW
 H_FOSSEN = 5
+KOOP_N, KOOP_K, KOOP_H, KOOP_GAMMA, KOOP_RIDGE = 96, 11, 7, 0.8, 1e-3
+KOOP_LAMS = (1.0, 0.97)
 
 
 def inputs(seed: int = 0) -> dict:
@@ -38,7 +40,61 @@ def inputs(seed: int = 0) -> dict:
     d["TAU_roll"] = rng.normal(size=(25, 6))
     d["X_fossen"] = rng.normal(size=(12 * WORLD + H_FOSSEN, 12)) * 0.2
     d["TAU_fossen"] = rng.normal(size=(12 * WORLD + H_FOSSEN, 6))
+    # the Koopman checks: 4 states, 2 inputs, 11 centers (lift d = 15, which
+    # splits 8/7 over a 2-rank model axis), a stable operator
+    rng = np.random.default_rng(seed + 1)
+    d["koop_X"] = np.cumsum(rng.normal(size=(KOOP_N, 4)) * 0.2, axis=0)
+    d["koop_U"] = rng.normal(size=(KOOP_N, 2))
+    d["koop_C"] = d["koop_X"][rng.choice(KOOP_N, KOOP_K, replace=False)]
+    n_lift = 4 + KOOP_K
+    d["koop_A"] = 0.9 * np.eye(n_lift) + 0.02 * rng.normal(size=(n_lift, n_lift))
+    d["koop_B"] = 0.1 * rng.normal(size=(n_lift, 2))
+    d["koop_X_prior"], d["koop_U_prior"] = rng.normal(size=(9, 4)), rng.normal(size=(9, 2))
     return d
+
+
+def koopman_model(d):
+    from bluerov2_dynamics_tpu_torch.models import koopman
+    return koopman.KoopmanModel(d["koop_C"], torch.tensor(KOOP_GAMMA, dtype=torch.float64),
+                                d["koop_A"], d["koop_B"])
+
+
+def koopman_stats0(d, lam):
+    """Streaming statistics that already hold a prior segment."""
+    from bluerov2_dynamics_tpu_torch.models import koopman
+    s = koopman.streaming_init(d["koop_C"], KOOP_GAMMA, 2, dtype=torch.float64, device="cpu")
+    return koopman.streaming_update(s, d["koop_X_prior"], d["koop_U_prior"], lam)
+
+
+def koopman_checks(d, mesh, mesh2) -> dict:
+    """The sharded Koopman functions' values on this rank: the multistep
+    RMSE on the 2 x 2 mesh (starts over 'data', A's rows over 'model'),
+    the fit and the streaming statistics over 4 ranks of 'data'."""
+    from bluerov2_dynamics_tpu_torch.parallel import sharded
+
+    out = {}
+    model = koopman_model(d)
+    X, U = d["koop_X"], d["koop_U"]
+    for method in ("scan", "conv"):
+        for H in (0, 1, KOOP_H):
+            out[f"koop_ms_{method}_H{H}"] = float(sharded.sharded_koopman_multistep_rmse(
+                mesh2, model, X, U, H, method=method))
+        out[f"koop_ms_{method}_nan"] = float(sharded.sharded_koopman_multistep_rmse(
+            mesh2, model, X, U, KOOP_N, method=method))
+    mask = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64)
+    for pi in (False, True):
+        init = d["koop_C"] * mask if pi else d["koop_C"]
+        m = sharded.sharded_koopman_fit(mesh, None, X, U, KOOP_K, KOOP_GAMMA, KOOP_RIDGE, 0,
+                                        position_invariant=pi, fit_decoder=not pi, init=init)
+        out[f"koop_fit_pi{int(pi)}"] = {k: None if v is None else v.numpy()
+                                        for k, v in m._asdict().items()}
+    for lam in KOOP_LAMS:
+        s = sharded.sharded_streaming_stats(mesh, koopman_stats0(d, lam), X, U, 10, lam)
+        out[f"koop_stream_{lam}"] = {k: None if v is None else v.numpy()
+                                     for k, v in s._asdict().items()}
+    out["koop_stream_indivisible"] = _error(lambda: sharded.sharded_streaming_stats(
+        mesh, koopman_stats0(d, 1.0), X[:-1], U[:-1], 10))
+    return out
 
 
 def linear_step(d):
@@ -118,6 +174,7 @@ def all_checks(rank: int, world: int) -> dict:
     rep = pmesh.replicate(mesh, mine)
     out["replicated"] = (rep["a"].tolist(), rep["b"][0].tolist(), mine["a"].tolist())
     out["mesh_bad_shape"] = _error(lambda: pmesh.make_mesh((3,), ("data",), device_type="cpu"))
+    out.update(koopman_checks(d, mesh, mesh2))
     return out
 
 
