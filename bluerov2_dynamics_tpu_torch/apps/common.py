@@ -1,5 +1,6 @@
-"""Pieces shared by the port's apps: arguments, datasets, the Koopman fit
-from the command line, timed metric tables and the evaluator policy.
+"""Pieces shared by the port's apps: arguments, datasets (the T3/T4
+recordings too), the Koopman fit from the command line, timed metric and
+rollout tables, strict-JSON run records and the evaluator policy.
 
 Counterpart of ``bluerov2_dynamics_tpu/apps/common.py``.  The differentiable
 Fossen fit's flags (``--fossen-fit*``) come with ROADMAP Queue 1 item 11,
@@ -142,6 +143,26 @@ def load_or_generate(args, loader: Callable = csv_loader.load_thruster_dataset, 
         csv_path = csv_loader.find_latest_csv(
             csv_path, getattr(args, "csv_name", "koopman_dataset_50Hz.csv"))
     return loader(csv_path)
+
+
+def synthetic_wrench_dataset(args, device=None) -> csv_loader.Dataset:
+    """T3's synthetic recording: the thruster recording the args select,
+    its commands mapped to the body wrench (host, float64)."""
+    from bluerov2_dynamics_tpu_torch.apps.tank_wrench_comp import wrench_dataset
+
+    ds = load_or_generate(args, csv_loader.load_thruster_dataset, device)
+    X, W = wrench_dataset(ds.X, ds.U)
+    return csv_loader.Dataset(X=X, U=W, t=ds.t, dt=ds.dt)
+
+
+def synthetic_quat_dataset(args, device=None) -> csv_loader.Dataset:
+    """T4's synthetic recording: the thruster recording the args select as
+    quat13 states under the body wrench (host, float64)."""
+    from bluerov2_dynamics_tpu_torch.apps.tank_wrench_quat import quat_dataset
+
+    ds = load_or_generate(args, csv_loader.load_thruster_dataset, device)
+    X13, W = quat_dataset(ds.X, ds.U)
+    return csv_loader.Dataset(X=X13, U=W, t=ds.t, dt=ds.dt)
 
 
 def fit_koopman_from_args(args, generator, X_tr, U_tr, loader: Callable = None):
@@ -287,6 +308,27 @@ def timed_metric_table(evaluators: Dict[str, Callable[[int], float]],
     for n in names:
         print(f"  {n:<21} |" + "|".join(f" {cold_times[n][H]:>13.4f} " for H in horizons))
     return rmses, times, cold_times
+
+
+def json_sanitize(obj):
+    """``obj`` with every non-finite float replaced by ``None``, so that
+    ``json.dumps(..., allow_nan=False)`` writes strict JSON."""
+    if isinstance(obj, dict):
+        return {k: json_sanitize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_sanitize(v) for v in obj]
+    if isinstance(obj, float) and not np.isfinite(obj):
+        return None
+    return obj
+
+
+def print_rollout_timings(timings: Dict[str, tuple]):
+    """``timings``: name -> (cold_seconds, warm_seconds)."""
+    print("\n[timings] Open-loop rollout time:")
+    print("  Model                 |    warm [s] | cold [s]")
+    print("  ----------------------|------------:|---------:")
+    for n, (cold, warm) in timings.items():
+        print(f"  {n:<21} | {warm:11.6f} | {cold:8.6f}")
 
 
 def open_loop_window(X_test: np.ndarray, horizon: int):

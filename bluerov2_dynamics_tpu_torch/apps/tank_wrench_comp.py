@@ -1,11 +1,17 @@
-"""Wrench workload, Euler state (T3): the Fossen physics baseline's
-endpoint evaluator.
+"""Wrench workload, Euler state (T3): Koopman vs Fossen vs DI on 6-D
+wrench inputs.
 
-Counterpart of the dataset conversion and the Fossen evaluator of
-``bluerov2_dynamics_tpu/apps/tank_wrench_comp.py``: a 12-state recording
-whose 8 thruster commands become a 6-D body wrench through the
-BlueROV2-heavy effectiveness matrix (``data/wrench.py``).  The Koopman and
-DI models and the app's command line come with ROADMAP Queue 1 item 10.
+Counterpart of ``bluerov2_dynamics_tpu/apps/tank_wrench_comp.py``: a
+12-state recording whose 8 thruster commands become a 6-D body wrench
+through the BlueROV2-heavy effectiveness matrix (``data/wrench.py``), or a
+CSV in the wrench contract, drives a Koopman(12, 6) model, the
+wrench-input Fossen model (on the card: K4 fused, one launch a horizon)
+and a learned double integrator, scored by one endpoint evaluator, then
+rolled open loop.  Media wait for ROADMAP Queue 1 item 16 and the
+``--fossen-fit*`` flags for item 11: the app needs ``--no-media``.
+
+Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_wrench_comp
+--synthetic --recording --steps 45823 --no-media``.
 """
 
 from __future__ import annotations
@@ -14,12 +20,16 @@ import numpy as np
 import torch
 
 from bluerov2_dynamics_tpu_torch.apps import common
+from bluerov2_dynamics_tpu_torch.data import csv_loader
 from bluerov2_dynamics_tpu_torch.data.wrench import thrusters_to_wrench
 from bluerov2_dynamics_tpu_torch.device import resolve_device
 from bluerov2_dynamics_tpu_torch.eval import metrics
-from bluerov2_dynamics_tpu_torch.models import fossen
+from bluerov2_dynamics_tpu_torch.eval.timing import time_fn_cold_warm
+from bluerov2_dynamics_tpu_torch.models import di, fossen, koopman
 from bluerov2_dynamics_tpu_torch.models.params import fossen_params
 from bluerov2_dynamics_tpu_torch.ops.cuda_eval import make_endpoint_sq_cuda_wrench
+from bluerov2_dynamics_tpu_torch.ops.integrators import rollout
+from bluerov2_dynamics_tpu_torch.utils.log import info
 
 
 def wrench_dataset(X, U):
@@ -46,3 +56,57 @@ def fossen_wrench_evaluator(dt, X_test, TAU_test, method="euler", p=None, device
         build_kernel=lambda H: make_endpoint_sq_cuda_wrench(p, dt, H, method=method),
         scan_eval=lambda H: metrics.endpoint_rmse(step, X_test, TAU_test, H),
     )
+
+
+def main(argv=None, device=None):
+    """The T3 workload; ``device=None`` means ``cuda``.  Returns the
+    open-loop predictions ``koopman``, ``fossen``, ``di`` and ``true``
+    (host arrays), the RMSE and timing tables (``rmse``, ``warm_s``,
+    ``cold_s``), the fits' ``(cold, warm)`` seconds, the models and the
+    train and test splits (host float64)."""
+    ap = common.base_parser(__doc__)
+    args = ap.parse_args(argv)
+    common.require_no_media(args)
+    device = resolve_device(device)
+    if args.synthetic or args.csv is None:
+        ds = common.synthetic_wrench_dataset(args, device)
+    else:
+        ds = common.load_or_generate(args, csv_loader.load_wrench_dataset, device)
+    train, test = csv_loader.train_test_split(ds, args.train_split)
+    info(f"Train: {len(train.X)} | Test: {len(test.X)}")
+    dt = float(ds.dt)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    X_tr, U_tr, X_te, U_te = f32(train.X), f32(train.U), f32(test.X), f32(test.U)
+
+    model, t_koop_cold, t_koop = common.fit_koopman_from_args(
+        args, torch.Generator(device), X_tr, U_tr, loader=csv_loader.load_wrench_dataset)
+    common.summarize_fit("Koopman", t_koop_cold, t_koop)
+    gains, t_di_cold, t_di = time_fn_cold_warm(lambda: di.estimate_gains(X_tr, U_tr, dt))
+    common.summarize_fit("Double Integrator", t_di_cold, t_di)
+
+    fossen_step = fossen.make_wrench_step(fossen_params(device=device), dt, method="euler",
+                                          state="euler12")
+    di_step = di.make_step_euler12(gains, dt)
+    k_method = common.koopman_method(args)
+    evaluators = {
+        "Koopman": lambda H: koopman.multistep_rmse(model, X_te, U_te, H, method=k_method),
+        "Fossen (wrench)": fossen_wrench_evaluator(dt, test.X, test.U, device=device),
+        "Double Integrator": lambda H: metrics.endpoint_rmse(di_step, X_te, U_te, H),
+    }
+    rmses, warm, cold = common.timed_metric_table(evaluators)
+
+    start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
+    x0, U_seq = X_te[start], U_te[start:start + horizon]
+    host = lambda t: t.double().cpu().numpy()  # noqa: E731
+    with torch.no_grad():
+        predK = koopman.simulate(model, x0, U_seq)
+        _, predF = rollout(fossen_step, x0, U_seq, include_initial=True)
+        _, predD = rollout(di_step, x0, U_seq, include_initial=True)
+    return {"koopman": host(predK), "fossen": host(predF), "di": host(predD),
+            "true": test.X[start:start + horizon + 1], "rmse": rmses, "warm_s": warm,
+            "cold_s": cold, "fit_s": {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di)},
+            "model": model, "gains": gains, "train": train, "test": test}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,18 @@
-"""Quaternion workload (T4): the quat13 Fossen physics baseline's endpoint
-evaluator.
+"""Quaternion workload (T4): Koopman vs quat-Fossen vs quat-DI.
 
-Counterpart of the dataset conversion and the Fossen evaluator of
-``bluerov2_dynamics_tpu/apps/tank_wrench_quat.py``: a 12-state recording
-becomes a 13-state quaternion recording (quaternions formed in float64 on
-the host) with the 6-D body wrench of ``data/wrench.py``; the model
-renormalises its quaternion after every step.  The Koopman and DI models
-and the app's command line come with ROADMAP Queue 1 item 10.
+Counterpart of ``bluerov2_dynamics_tpu/apps/tank_wrench_quat.py``: a
+12-state recording becomes a 13-state quaternion recording (quaternions
+formed in float64 on the host) under the 6-D body wrench of
+``data/wrench.py``, or a quaternion CSV loads (legacy Euler CSVs
+converted).  Koopman(13, 6) is scored with its quaternion renormalised
+before the error, the quaternion wrench-input Fossen model renormalises
+after every step (on the card: K5 fused, one launch a horizon), and the
+quaternion double integrator renormalises too; then each rolls open loop.
+Media wait for ROADMAP Queue 1 item 16 and the ``--fossen-fit*`` flags
+for item 11: the app needs ``--no-media``.
+
+Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_wrench_quat
+--synthetic --recording --steps 45823 --no-media``.
 """
 
 from __future__ import annotations
@@ -15,13 +21,17 @@ import numpy as np
 import torch
 
 from bluerov2_dynamics_tpu_torch.apps import common
+from bluerov2_dynamics_tpu_torch.data import csv_loader
 from bluerov2_dynamics_tpu_torch.data.csv_loader import euler_to_quat_np
 from bluerov2_dynamics_tpu_torch.data.wrench import thrusters_to_wrench
 from bluerov2_dynamics_tpu_torch.device import resolve_device
 from bluerov2_dynamics_tpu_torch.eval import metrics
-from bluerov2_dynamics_tpu_torch.models import fossen
+from bluerov2_dynamics_tpu_torch.eval.timing import time_fn_cold_warm
+from bluerov2_dynamics_tpu_torch.models import di, fossen, koopman
 from bluerov2_dynamics_tpu_torch.models.params import fossen_params
 from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_sq_cuda_quat
+from bluerov2_dynamics_tpu_torch.ops.integrators import rollout
+from bluerov2_dynamics_tpu_torch.utils.log import info
 
 
 def quat_dataset(X, U):
@@ -52,3 +62,56 @@ def fossen_quat_evaluator(dt, X_test, TAU_test, method="euler", p=None, device=N
         build_kernel=lambda H: make_endpoint_sq_cuda_quat(p, dt, H, method=method),
         scan_eval=lambda H: metrics.endpoint_rmse(step, X_test, TAU_test, H),
     )
+
+
+def main(argv=None, device=None):
+    """The T4 workload; ``device=None`` means ``cuda``.  Returns what
+    :func:`bluerov2_dynamics_tpu_torch.apps.tank_wrench_comp.main`
+    returns, for the quat13 models."""
+    ap = common.base_parser(__doc__)
+    args = ap.parse_args(argv)
+    common.require_no_media(args)
+    device = resolve_device(device)
+    if args.synthetic or args.csv is None:
+        ds = common.synthetic_quat_dataset(args, device)
+    else:
+        ds = common.load_or_generate(args, csv_loader.load_quat_dataset, device)
+    train, test = csv_loader.train_test_split(ds, args.train_split)
+    info(f"Train: {len(train.X)} | Test: {len(test.X)}")
+    dt = float(ds.dt)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    X_tr, U_tr, X_te, U_te = f32(train.X), f32(train.U), f32(test.X), f32(test.U)
+
+    model, t_koop_cold, t_koop = common.fit_koopman_from_args(
+        args, torch.Generator(device), X_tr, U_tr, loader=csv_loader.load_quat_dataset)
+    common.summarize_fit("Koopman (quat)", t_koop_cold, t_koop)
+    gains, t_di_cold, t_di = time_fn_cold_warm(lambda: di.estimate_gains(X_tr, U_tr, dt))
+    common.summarize_fit("Double Integrator (quat)", t_di_cold, t_di)
+
+    fossen_step = fossen.make_wrench_step(fossen_params(device=device), dt, method="euler",
+                                          state="quat13")
+    di_step = di.make_step_quat13(gains, dt)
+    k_method = common.koopman_method(args)
+    evaluators = {
+        "Koopman (quat)": lambda H: koopman.multistep_rmse(
+            model, X_te, U_te, H, post_decode=fossen.renormalize_quat13, method=k_method),
+        "Fossen (quat)": fossen_quat_evaluator(dt, test.X, test.U, device=device),
+        "DI (quat)": lambda H: metrics.endpoint_rmse(di_step, X_te, U_te, H),
+    }
+    rmses, warm, cold = common.timed_metric_table(evaluators)
+
+    start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
+    x0, U_seq = X_te[start], U_te[start:start + horizon]
+    host = lambda t: t.double().cpu().numpy()  # noqa: E731
+    with torch.no_grad():
+        predK = koopman.simulate(model, x0, U_seq)
+        _, predF = rollout(fossen_step, x0, U_seq, include_initial=True)
+        _, predD = rollout(di_step, x0, U_seq, include_initial=True)
+    return {"koopman": host(predK), "fossen": host(predF), "di": host(predD),
+            "true": test.X[start:start + horizon + 1], "rmse": rmses, "warm_s": warm,
+            "cold_s": cold, "fit_s": {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di)},
+            "model": model, "gains": gains, "train": train, "test": test}
+
+
+if __name__ == "__main__":
+    main()

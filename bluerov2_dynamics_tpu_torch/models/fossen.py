@@ -12,8 +12,8 @@ conventions:
 
 The mass matrix is diagonal and the Coriolis and damping matrices sparse,
 so ``nu_dot`` is written in closed form.  All functions broadcast over
-leading batch dimensions.  The reduced 9-state RHS comes with a later
-slice of the port.
+leading batch dimensions.  :func:`reduced_rhs` is the reduced 9-state
+model of the PINc physics loss.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from bluerov2_dynamics_tpu_torch.models.params import (
     FossenParams,
     LagParams,
+    ReducedParams,
     ThrusterConfig,
 )
 from bluerov2_dynamics_tpu_torch.models.thrusters import (
@@ -270,3 +271,32 @@ def simulate_wrench(
     step = make_wrench_step(p, dt, method, state, renormalize)
     _, traj = rollout(step, x0, TAU, include_initial=True)
     return traj
+
+
+# ---------------------------------------------------------------------------
+# Reduced 9-state RHS (the PINc physics loss)
+# ---------------------------------------------------------------------------
+
+def reduced_rhs(rp: ReducedParams, x9, u4):
+    """xdot of the reduced state ``[x, y, z, cos psi, sin psi, u, v, w, r]``
+    under the input ``[X, Y, Z, Mz]``.
+
+    Keeps, term for term, the two sign quirks of the reference model that
+    the JAX package keeps (``bluerov2_dynamics_tpu/models/fossen.py:324``).
+    """
+    cpsi, spsi = x9[..., 3], x9[..., 4]
+    u, v, w, r = x9[..., 5], x9[..., 6], x9[..., 7], x9[..., 8]
+    X, Y, Z, Mz = u4[..., 0], u4[..., 1], u4[..., 2], u4[..., 3]
+
+    x_d = cpsi * u - spsi * v
+    y_d = spsi * u + cpsi * v
+    z_d = w
+    cpsi_d = -spsi * r
+    spsi_d = cpsi * r
+
+    u_d = (X + (rp.m - rp.Y_vd) * v * r + (rp.X_u + rp.X_uc * torch.abs(u)) * u) / (rp.m - rp.X_ud)
+    v_d = (Y - (rp.m - rp.X_ud) * u * r + (rp.Y_v + rp.Y_vc * torch.abs(v)) * v) / (rp.m - rp.Y_vd)
+    w_d = (Z + (rp.Z_w + rp.Z_wc * torch.abs(w)) * w + rp.m * rp.g - rp.F_buoy) / (rp.m - rp.Z_wd)
+    r_d = (Mz - (rp.X_ud - rp.Y_vd) * u * v + (rp.N_r + rp.N_rc * torch.abs(r)) * r) / (rp.I_zz - rp.N_rd)
+
+    return torch.stack([x_d, y_d, z_d, cpsi_d, spsi_d, u_d, v_d, w_d, r_d], dim=-1)

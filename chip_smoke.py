@@ -37,6 +37,18 @@ Phases (any failure raises and ends the run with a non-zero code):
      off inside the Koopman calls with the caller's TF32 on.  Timed: the
      generator (graph and eager), the fits cold and warm, the multistep
      RMSE at each H by scan and conv, the sweep and the streaming fit;
+   - the learned-model apps (:func:`learned_apps`): T6
+     ``apps.tank_full_comparison.main`` on the 45,823-step pseudo
+     recording with a copy of the committed PINc checkpoint (its sidecar
+     honoured), ``--pinc-psi-ssa`` and ``--json-out`` (Koopman, Fossen on
+     K2 Euler, DI, PINc), T5 ``apps.tank_rk4.main`` the same on K2 RK4, T3
+     and T4 (``tank_wrench_comp``, ``tank_wrench_quat``) at 20,000 steps
+     on K4 and K5; then PINc trained from scratch at the flagship batch
+     (256, rollout 10 x 16) for a few epochs and its checkpoint reloaded
+     bit for bit.  Checked: each Fossen row against its plain version,
+     the DI and PINc RMSEs and the committed PINc's forward against the
+     same port functions in float64 on the host CPU, finite losses; the
+     device-busy share of the PINc endpoint and of training steps;
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
      ``make_rollout_final_cuda``: one C call, one kernel (the profiler
      counts its device events);
@@ -87,7 +99,8 @@ Phases (any failure raises and ends the run with a non-zero code):
    is held by its increment, the mix probe at both quat13 budgets);
 8. the measured ceilings of K1-K7 from the probes' rates, and the
    measured price of one sinf and one rsqrtf in FMA-tree flops;
-9. a ``koopman apps:`` JSON line, one JSON line ``{"kernels": [...]}``,
+9. a ``koopman apps:`` and a ``learned apps:`` JSON line, one JSON line
+   ``{"kernels": [...]}``,
    then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -114,6 +127,14 @@ T2_ARGS = ["--synthetic", "--recording", "--steps", str(T2_STEPS), "--physics-ba
 T1_ARGS = ["--no-media"]            # apps.sim_koopman at its defaults: 48,000 steps, 200 RBFs
 SWEEP_ARGS = ["--sweep", "--sweep-gammas", "1", "3", "10", "--sweep-ridges", "1e-3", "1e-2", "1e-1"]
 EAGER_CHUNKS = 2                    # graph chunks held against the eager loop bit for bit
+# the learned-model apps: T6 and T5 on the full pseudo recording with the
+# committed PINc checkpoint (copied to a temporary directory), T3 and T4 at
+# the apps' default 20,000 steps; then PINc training at the flagship batch
+LEARNED_ARGS = ["--synthetic", "--recording", "--steps", str(T2_STEPS), "--no-media",
+                "--pinc-psi-ssa"]
+T34_ARGS = ["--synthetic", "--recording", "--steps", "20000", "--no-media"]
+TRAIN_EPOCHS = 3                    # batch 256, rollout 10 steps x 16 windows
+TRAIN_PROFILE_STEPS = 5             # minibatch steps traced for the device-busy share
 # The Koopman RMSEs on the card (float32 k-means, lifts and propagation; the
 # normal equations in float64) against the same port functions in float64
 # on the host CPU, on the card's data and centers: measured on the H100 at
@@ -121,6 +142,14 @@ EAGER_CHUNKS = 2                    # graph chunks held against the eager loop b
 # Scan against conv on the card: reassociation only (measured 4.4e-4).
 KOOP_RTOL = 5e-3
 CONV_RTOL = 1e-3
+# The learned models on the card (float32) against the same port functions
+# in float64 on the host CPU, with the card's weights and gains, measured on
+# the H100 and held at about ten times that: the PINc endpoint RMSEs at most
+# 5.3e-5 relative (T6, H=100), the DI ones 2.3e-7 (T3, H=100), the committed
+# PINc's forward on the T6 test split 5.5e-5 absolute on outputs up to 6.7.
+PINC_RTOL = 6e-4
+DI_RTOL = 3e-6
+PINC_FWD_ATOL = 6e-4
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 # The bounds price the audited step counts (eval/op_counts.py) at these
@@ -538,6 +567,238 @@ def koopman_apps(dev, card, drive) -> dict:
     return out
 
 
+def learned_apps(dev, card, drive) -> dict:
+    """The learned-model apps, each with the launch counts set to 0 before
+    and read after: T6 (``tank_full_comparison``) on the pseudo recording
+    at 45,823 steps with a copy of the committed PINc checkpoint (its
+    sidecar turns the position mask on), ``--pinc-psi-ssa`` and
+    ``--json-out``, the Fossen row on K2 Euler; T5 (``tank_rk4``) the same
+    with K2 RK4; T3 and T4 at 20,000 steps (K4, K5).  Checked: the Fossen
+    rows against the plain versions on the card, the DI and PINc RMSEs
+    against the same port functions in float64 on the host CPU (the card's
+    gains and weights), the committed PINc's forward against float64, the
+    JSON record.  Then PINc trains from scratch on T6's training split at
+    the flagship batch for a few epochs: seconds an epoch, finite losses,
+    the device-busy share of its minibatch steps and of the PINc endpoint,
+    and the saved checkpoint reloading with the same bits."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from bluerov2_dynamics_tpu_torch import convert
+    from bluerov2_dynamics_tpu_torch.apps import (
+        common, tank_full_comparison, tank_rk4, tank_wrench_comp, tank_wrench_quat)
+    from bluerov2_dynamics_tpu_torch.eval import metrics
+    from bluerov2_dynamics_tpu_torch.eval.timing import profile_calls
+    from bluerov2_dynamics_tpu_torch.models import di, pinc
+    from bluerov2_dynamics_tpu_torch.models.params import (
+        fossen_params, lag_params, reduced_params, thruster_config)
+    from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
+    from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
+    from bluerov2_dynamics_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    cpu = torch.device("cpu")
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cpu)  # noqa: E731
+    p = fossen_params(device=dev)
+    cfg, lag = thruster_config(device=dev), lag_params(DT, device=dev)
+    out = {}
+
+    def busy_share(fn, what, calls=1):
+        dev_events, wall_us = profile_calls(fn, calls)
+        if not dev_events:
+            print(f"{what}: torch.profiler saw no device events; busy share not measured")
+            return None
+        busy = sum(e.time_range.elapsed_us() for e in dev_events)
+        share = busy / wall_us
+        print(f"{what}: {len(dev_events) / calls:.0f} device events a call, busy {busy / calls:.1f} "
+              f"of {wall_us / calls:.1f} us = {share:.4f} busy share [{card}]")
+        return dict(events_a_call=len(dev_events) / calls, busy_us=busy / calls,
+                    wall_us=wall_us / calls, share=share)
+
+    def fossen_vs_plain(app, run, plain, X, U):
+        """The app's Fossen row (a fused kernel) against its plain version."""
+        rel = {}
+        for H in H_APP:
+            want = float(common.fused_rmse(lambda X_, U_: plain(X_, U_, H), X, U, H))
+            close(run["rmse"][name_of[app]][H], want, TOL["rmse"][0],
+                  f"{app} Fossen row H={H} (kernel vs plain)")
+            rel[H] = abs(run["rmse"][name_of[app]][H] - want) / abs(want)
+        return rel
+
+    def di_vs_float64(app, run, variant):
+        """The card's DI RMSEs against float64 on the host CPU, the card's gains."""
+        gains = di.DIGains(*(g.double().cpu() for g in run["gains"]))
+        step = {"euler12": di.make_step_euler12, "euler12_rk4": di.make_step_euler12_rk4,
+                "quat13": di.make_step_quat13}[variant](gains, DT)
+        X, U = f64(run["test"].X), f64(run["test"].U)
+        rel = {}
+        for H in H_APP:
+            want = float(metrics.endpoint_rmse(step, X, U, H))
+            got = run["rmse"][di_name[app]][H]
+            rel[H] = abs(got - want) / abs(want)
+            close(got, want, DI_RTOL, f"{app} DI H={H} (card float32 vs host float64)")
+        return rel
+
+    name_of = {"T6": "Fossen (BlueROV2)", "T5": "Fossen (BlueROV2)", "T3": "Fossen (wrench)",
+               "T4": "Fossen (quat)"}
+    di_name = {"T6": "Double Integrator", "T5": "Double Integrator", "T3": "Double Integrator",
+               "T4": "DI (quat)"}
+
+    def app_entry(run, seconds=None, launches=None):
+        return dict(seconds=seconds, launches=launches, rmse=run["rmse"], warm_s=run["warm_s"],
+                    cold_s=run["cold_s"], fit_s=run["fit_s"])
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        ckpt = tmp / "pinc_best.msgpack"
+        models = Path(__file__).resolve().parent / "models"
+        for name in ("pinc_best.msgpack", "pinc_best.msgpack.json"):
+            shutil.copy(models / name, tmp / name)
+        record = tmp / "t6.json"
+        t0 = time.perf_counter()
+        counts = {}
+        t6 = drive("T6 app (tank_full_comparison.main)", ("window_sq",),
+                   lambda: tank_full_comparison.main(
+                       LEARNED_ARGS + ["--pinc-ckpt", str(ckpt), "--json-out", str(record)],
+                       device=dev), into=counts)
+        t6_s = time.perf_counter() - t0
+        if counts["window_sq"] != 2 * len(H_APP):
+            fail(f"T6 app: {counts['window_sq']} K2 launches, not one a call of the Fossen row")
+        net = t6["net"]
+        if not (net.position_invariant and net.hidden == (64, 64, 64, 64)
+                and net.norm_mu is not None and np.any(net.norm_mu != 0)):
+            fail("T6: the committed checkpoint's sidecar (position mask, normalisation) was "
+                 "not honoured")
+        rec = json.loads(record.read_text())
+        if rec["backend"] != dev.type or set(rec["rmse"]) != set(t6["rmse"]):
+            fail(f"T6: the JSON record is not the run's: {rec}")
+        for name, row in t6["rmse"].items():
+            if not all(np.isfinite(v) for v in row.values()):
+                fail(f"T6 {name}: an RMSE is not finite: {row}")
+        fossen_rel = {"T6": fossen_vs_plain(
+            "T6", t6, lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "euler"),
+            f32(t6["test"].X), f32(t6["test"].U))}
+        di_rel = {"T6": di_vs_float64("T6", t6, "euler12")}
+
+        # PINc: the card's RMSEs and the committed net's forward against float64 on the host
+        t0 = time.perf_counter()
+        net64 = convert.pinc_params_from_numpy(
+            convert.pinc_params_to_numpy(net), net.norm_mu, net.norm_sigma, net.hidden,
+            position_invariant=net.position_invariant, dtype=torch.float64, device=cpu)
+        X64, U64 = f64(t6["test"].X), f64(t6["test"].U)
+        U4_64 = pinc.wrench4_from_thrusters(thruster_config(dtype=torch.float64, device=cpu),
+                                            lag_params(DT, dtype=torch.float64, device=cpu), U64)
+        pinc_rel = {}
+        for name, mode in (("PINc (ResDNN)", "raw"), ("PINc (ssa psi)", "ssa")):
+            for H in H_APP:
+                want = float(pinc.endpoint_rmse(net64, X64, U4_64, DT, H, mode))
+                got = t6["rmse"][name][H]
+                pinc_rel[f"{mode} H={H}"] = abs(got - want) / abs(want)
+                close(got, want, PINC_RTOL, f"T6 {name} H={H} (card float32 vs host float64)")
+        z64 = torch.cat([pinc.state12_to_9(X64[:-1]), U4_64[:-1],
+                         torch.full((len(X64) - 1, 1), DT, dtype=torch.float64)], dim=1)
+        with torch.no_grad():
+            fwd = net(z64.float().to(dev)).double().cpu()
+            fwd64 = net64(z64)
+        fwd_err = float((fwd - fwd64).abs().max())
+        print(f"T6 PINc forward on {len(z64)} rows: max|card float32 - host float64| "
+              f"{fwd_err:.3e} on outputs up to {float(fwd64.abs().max()):.3g} "
+              f"(atol {PINC_FWD_ATOL:g}); host float64 checks {time.perf_counter() - t0:.1f} s")
+        if not fwd_err <= PINC_FWD_ATOL:
+            fail(f"T6 PINc forward: {fwd_err} from float64")
+        X_te, U4_te = f32(t6["test"].X), pinc.wrench4_from_thrusters(cfg, lag, f32(t6["test"].U))
+        endpoint_busy = busy_share(
+            lambda: pinc.endpoint_rmse(net, X_te, U4_te, DT, H_APP[-1]),
+            f"PINc endpoint H={H_APP[-1]} over {len(X_te) - H_APP[-1]} starts")
+
+        # T5: the same recording and checkpoint under RK4 (K2's RK4 form)
+        counts5 = {}
+        t5 = drive("T5 app (tank_rk4.main)", ("window_sq",),
+                   lambda: tank_rk4.main(LEARNED_ARGS + ["--pinc-ckpt", str(ckpt)], device=dev),
+                   into=counts5)
+        if counts5["window_sq"] != 2 * len(H_APP):
+            fail(f"T5 app: {counts5['window_sq']} K2 launches, not one a call of the Fossen row")
+        fossen_rel["T5"] = fossen_vs_plain(
+            "T5", t5, lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "rk4"),
+            f32(t5["test"].X), f32(t5["test"].U))
+        di_rel["T5"] = di_vs_float64("T5", t5, "euler12_rk4")
+
+        # T3 and T4: Koopman, Fossen (K4 / K5) and DI on the wrench recording
+        runs34 = {}
+        for app, main, kname, plain, variant in (
+                ("T3", tank_wrench_comp.main, "window_sq_wrench",
+                 lambda X, U, H: ce.window_sq_wrench_plain(p, X, U, DT, H, "euler"), "euler12"),
+                ("T4", tank_wrench_quat.main, "window_sq_quat",
+                 lambda X, U, H: cq.window_sq_quat_plain(p, X, U, DT, H, "euler"), "quat13")):
+            c = {}
+            t0 = time.perf_counter()
+            r = drive(f"{app} app ({main.__module__.rsplit('.', 1)[1]}.main)", (kname,),
+                      lambda main=main: main(T34_ARGS, device=dev), into=c)
+            secs = time.perf_counter() - t0
+            if c[kname] != 2 * len(H_APP):
+                fail(f"{app} app: {c[kname]} {kname} launches, not one a call of the Fossen row")
+            for name, row in r["rmse"].items():
+                if not all(np.isfinite(v) for v in row.values()):
+                    fail(f"{app} {name}: an RMSE is not finite: {row}")
+            fossen_rel[app] = fossen_vs_plain(app, r, plain, f32(r["test"].X), f32(r["test"].U))
+            di_rel[app] = di_vs_float64(app, r, variant)
+            runs34[app] = app_entry(r, secs, c[kname])
+
+        # PINc training from scratch at the flagship batch on T6's training split
+        X_tr, U_tr = f32(t6["train"].X), f32(t6["train"].U)
+        data = pinc.make_dataset(X_tr, U_tr, DT, cfg, lag)
+        tc = pinc.TrainConfig(epochs=TRAIN_EPOCHS, normalize=True, position_invariant=True,
+                              lr_schedule="cosine")
+        gen = torch.Generator(dev).manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained, hist = pinc.train(gen, data, tc)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        n_batches = len(data.z) // tc.batch
+        print(f"PINc training: {TRAIN_EPOCHS} epochs of {n_batches} minibatches (batch "
+              f"{tc.batch}, rollout {tc.rollout_steps} x {tc.rollout_windows}) in {train_s:.2f} s "
+              f"= {train_s / TRAIN_EPOCHS:.3f} s an epoch, losses {hist} [{card}]")
+        if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist).all():
+            fail(f"PINc training: losses {hist}")
+        perm, starts = pinc.epoch_draws(gen, len(data.z), n_batches, tc.batch, tc)
+        opt = pinc.make_optimizer(tc, trained.parameters(), total_steps=n_batches)
+        k = TRAIN_PROFILE_STEPS
+        rp = reduced_params(device=dev)
+        step_busy = busy_share(
+            lambda: pinc.train_epoch(trained, opt, data, perm[:k], starts[:k], tc, rp, True),
+            f"PINc training, {k} minibatch steps", calls=1)
+        saved = tmp / "trained.msgpack"
+        save_pytree(saved, {"params": convert.pinc_params_to_numpy(trained),
+                            "norm_mu": trained.norm_mu, "norm_sigma": trained.norm_sigma})
+        tree = load_pytree(saved)
+        back = convert.pinc_params_from_numpy(tree["params"], tree["norm_mu"], tree["norm_sigma"],
+                                              trained.hidden, position_invariant=True, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(trained.state_dict().values(),
+                                                     back.state_dict().values()))
+        print(f"PINc checkpoint: {saved.stat().st_size} bytes, reloads with the same bits: {same}")
+        if not same or not np.array_equal(tree["norm_mu"], trained.norm_mu):
+            fail("the trained PINc checkpoint did not reload with the same bits")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out["T6"] = dict(app_entry(t6, t6_s, counts["window_sq"]), data_s=t6["data_s"],
+                     rollout_s=t6["rollout_s"], pinc_fwd_err_vs_float64=fwd_err,
+                     pinc_endpoint_busy=endpoint_busy)
+    out["T5"] = dict(app_entry(t5, None, counts5["window_sq"]), data_s=t5["data_s"],
+                     rollout_s=t5["rollout_s"])
+    out.update(runs34)
+    out["rel_vs_float64"] = {"pinc": pinc_rel, "di": di_rel}
+    out["fossen_rel_vs_plain"] = fossen_rel
+    out["training"] = dict(epochs=TRAIN_EPOCHS, minibatches=n_batches, seconds=train_s,
+                           s_an_epoch=train_s / TRAIN_EPOCHS, losses=hist,
+                           step_busy=step_busy, reload_same_bits=same)
+    print(f"T6: {t6_s:.1f} s in all (recording {t6['data_s']:.2f} s); T5 data {t5['data_s']:.2f} "
+          f"s; T3 {runs34['T3']['seconds']:.1f} s, T4 {runs34['T4']['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -617,6 +878,8 @@ def main() -> None:
 
     # the Koopman apps T2 and T1 at full size
     apps = koopman_apps(dev, card, drive)
+    # the learned-model apps T6, T5, T3 and T4 and PINc training
+    learned = learned_apps(dev, card, drive)
 
     # the recording: the port's own simulator on the card, plus sensor noise
     t0 = time.perf_counter()
@@ -1358,6 +1621,7 @@ def main() -> None:
     print(f"measured prices: " + json.dumps({"sinf_flops": sin_price, "rsqrtf_flops": rsqrt_price,
                                               "fma_tree_share_of_peak": tree / FP32_PEAK}))
     print("koopman apps: " + json.dumps(apps, default=float))
+    print("learned apps: " + json.dumps(learned, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -12,9 +12,16 @@ Tolerances: rtol 1e-5 for the float32 window evaluators (the dry run's,
 ``__graft_entry__.py:298-351``); rtol 1e-9 and atol 1e-10 for the float64
 step loops (``tests/test_parallel.py:32-66``) and for the float64 sharded
 Koopman functions, held against the JAX package's single-device
-``multistep_rmse``, fit solve and ``streaming_scan``.
+``multistep_rmse``, fit solve and ``streaming_scan``.  Data-parallel PINc
+training (float32, 12 Adam steps, fed the JAX package's initial
+parameters and draws): the loss history at rtol 1e-5 against
+``pinc.train`` and against the port's single-device run (measured 8.2e-8
+for both), the parameters at rtol 1e-5, atol 1e-6 against the
+single-device run (measured 6.0e-8 abs): the gradients' mean over ranks
+reorders float32 sums.
 """
 
+import os
 import time
 
 import numpy as np
@@ -55,9 +62,25 @@ def data():
 
 
 @pytest.fixture(scope="module")
-def four_ranks():
+def pinc_inputs(tmp_path_factory):
+    """The JAX package's PINc training inputs and results
+    (``test_torch_pinc.jax_training``), and an .npz of them for the ranks."""
+    from test_torch_pinc import jax_training
+
+    d = jax_training()
+    path = tmp_path_factory.mktemp("pinc") / "inputs.npz"
+    np.savez(path, **d)
+    return d, path
+
+
+@pytest.fixture(scope="module")
+def four_ranks(pinc_inputs):
     """Every port-side value of the 4-rank checks, one dict per rank."""
-    return launch.run_ranks(trc.all_checks, trc.WORLD, backend="gloo", timeout=120)
+    os.environ[trc.PINC_INPUTS] = str(pinc_inputs[1])
+    try:
+        return launch.run_ranks(trc.all_checks, trc.WORLD, backend="gloo", timeout=120)
+    finally:
+        del os.environ[trc.PINC_INPUTS]
 
 
 @pytest.fixture(scope="module")
@@ -293,6 +316,34 @@ def test_world1_sharded_koopman_equals_the_single_device_functions(mesh1, data):
     got = sharded.sharded_streaming_stats(mesh1, s0, X, U, 10, 0.97)
     want = tk.streaming_scan(s0, X, U, 10, 0.97)
     np.testing.assert_allclose(got.gram.numpy(), want.gram.numpy(), **TOL64)
+
+
+# --- data-parallel PINc training ------------------------------------------------------
+
+def test_pinc_dp_training_matches_jax_and_one_device(four_ranks, pinc_inputs):
+    d = pinc_inputs[0]
+    for w in (8, 6):          # windows split over the ranks / taken by every rank
+        net, hist = trc.pinc_train(d, rollout_windows=w)
+        want = {k: v.numpy() for k, v in net.state_dict().items()}
+        for r in four_ranks:
+            got_hist, got = r[f"pinc_w{w}"]
+            np.testing.assert_allclose(got_hist, hist, rtol=1e-5, err_msg=f"w={w}")
+            if w == 8:
+                np.testing.assert_allclose(got_hist, d["hist"], rtol=1e-5)
+            for k, v in want.items():
+                np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6, err_msg=f"{k} w={w}")
+    n = d["z"].shape[0]
+    for r in four_ranks:
+        assert r["pinc_indivisible"] == (f"effective batch 62 (min(tc.batch=62, N={n})) must "
+                                         "divide over the 4-way 'data' mesh axis")
+
+
+def test_world1_pinc_training_equals_one_device(mesh1, pinc_inputs):
+    d = pinc_inputs[0]
+    net1, hist1 = trc.pinc_train(d, mesh1)
+    net, hist = trc.pinc_train(d)
+    assert hist1 == hist
+    assert all(torch.equal(a, b) for a, b in zip(net1.parameters(), net.parameters()))
 
 
 # --- the rank launcher ----------------------------------------------------------

@@ -161,25 +161,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     interpreter and check ``sys.modules`` by exact name: the port's own
     name starts with the JAX package's, so a prefix test would be wrong.
     ``pandas`` must not be imported either: the card's machine has none,
-    and the loaders import it only where they read a file."""
+    and the loaders import it only where they read a file; nor ``optax``
+    or ``msgpack``, which the learned models and checkpoints replace."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
         "import bluerov2_dynamics_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 40, names\n"
+        "assert len(names) >= 46, names\n"
         "for m in ('ops.quaternion', 'ops.cuda_quat', 'data.wrench', 'data.csv_loader',\n"
         "          'apps.tank_wrench_comp', 'apps.tank_wrench_quat', 'parallel.mesh',\n"
         "          'parallel.sharded', 'parallel.launch', 'ops.cuda_probes', 'eval.op_counts',\n"
         "          'utils.log', 'data.synthetic', 'ops.lifting', 'ops.kmeans', 'ops.precision',\n"
         "          'models.koopman', 'apps.common', 'apps.tank_koopman', 'apps.sim_koopman',\n"
-        "          'eval.timing', 'convert'):\n"
+        "          'eval.timing', 'convert', 'models.di', 'models.pinc', 'utils.checkpoint',\n"
+        "          'apps.tank_full_comparison', 'apps.tank_rk4'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "def banned(m):\n"
         "    return any(m == b or m.startswith(b + '.') for b in\n"
-        "               ('jax', 'jaxlib', 'flax', 'bench', 'bluerov2_dynamics_tpu', 'pandas'))\n"
+        "               ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'bench',\n"
+        "                'bluerov2_dynamics_tpu', 'pandas'))\n"
         "print(sorted(m for m in sys.modules if banned(m)))\n"
     )
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,

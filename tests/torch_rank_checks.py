@@ -9,6 +9,8 @@ the JAX side of the test build the same arrays.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -19,6 +21,12 @@ N_WINDOW = 32 * WORLD + H_WINDOW
 H_FOSSEN = 5
 KOOP_N, KOOP_K, KOOP_H, KOOP_GAMMA, KOOP_RIDGE = 96, 11, 7, 0.8, 1e-3
 KOOP_LAMS = (1.0, 0.97)
+# PINc training (tests/test_torch_pinc.py): the JAX package's initial
+# parameters and draws reach the ranks in an .npz named by this variable
+PINC_INPUTS = "TORCH_RANK_CHECKS_PINC_INPUTS"
+PINC_HIDDEN = (16, 16)
+PINC_TRAIN = dict(epochs=3, batch=64, rollout_steps=5, rollout_windows=8, normalize=True,
+                  position_invariant=True, lr_schedule="cosine")
 
 
 def inputs(seed: int = 0) -> dict:
@@ -94,6 +102,45 @@ def koopman_checks(d, mesh, mesh2) -> dict:
                                      for k, v in s._asdict().items()}
     out["koop_stream_indivisible"] = _error(lambda: sharded.sharded_streaming_stats(
         mesh, koopman_stats0(d, 1.0), X[:-1], U[:-1], 10))
+    return out
+
+
+def nested(flat: dict, prefix: str) -> dict:
+    """``{"Dense_0": {"kernel": ...}, ...}`` from the ``prefix.Dense_0.kernel``
+    keys of a flat dict."""
+    out = {}
+    for k, v in flat.items():
+        if k.startswith(prefix + "."):
+            _, a, b = k.split(".")
+            out.setdefault(a, {})[b] = v
+    return out
+
+
+def pinc_train(d: dict, mesh=None, **overrides):
+    """The port's ``train_from_draws`` from the initial parameters
+    (``params0.*``), data and draws of ``d``, under ``PINC_TRAIN`` with
+    ``overrides``; fewer ``rollout_windows`` keep the first of each draw."""
+    from bluerov2_dynamics_tpu_torch import convert
+    from bluerov2_dynamics_tpu_torch.models import pinc
+
+    tc = pinc.TrainConfig(**{**PINC_TRAIN, **overrides})
+    starts = d["starts"][..., :tc.rollout_windows]
+    net = convert.pinc_params_from_numpy(nested(d, "params0"), d["mu"], d["sigma"], PINC_HIDDEN,
+                                         position_invariant=True, device="cpu")
+    data = pinc.PINcData(*(torch.from_numpy(np.array(d[k])) for k in ("z", "y", "u4")))
+    return pinc.train_from_draws(net, data, zip(d["perms"], starts), tc, mesh=mesh)
+
+
+def pinc_checks(mesh) -> dict:
+    """Data-parallel PINc training on this rank: with the windows split
+    over the ranks (8 of them) and with every rank taking all (6), and
+    the refusal of a batch that does not divide over the ranks."""
+    d = dict(np.load(os.environ[PINC_INPUTS]))
+    out = {}
+    for w in (8, 6):
+        net, hist = pinc_train(d, mesh, rollout_windows=w)
+        out[f"pinc_w{w}"] = (hist, {k: v.numpy() for k, v in net.state_dict().items()})
+    out["pinc_indivisible"] = _error(lambda: pinc_train(d, mesh, batch=62))
     return out
 
 
@@ -175,6 +222,7 @@ def all_checks(rank: int, world: int) -> dict:
     out["replicated"] = (rep["a"].tolist(), rep["b"][0].tolist(), mine["a"].tolist())
     out["mesh_bad_shape"] = _error(lambda: pmesh.make_mesh((3,), ("data",), device_type="cpu"))
     out.update(koopman_checks(d, mesh, mesh2))
+    out.update(pinc_checks(mesh))
     return out
 
 
