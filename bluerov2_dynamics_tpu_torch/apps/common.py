@@ -1,12 +1,12 @@
 """Pieces shared by the port's apps: arguments, datasets (the T3/T4
-recordings too), the Koopman fit from the command line, timed metric and
-rollout tables, strict-JSON run records and the evaluator policy.
+recordings too), the Koopman and differentiable Fossen fits from the
+command line, timed metric and rollout tables, strict-JSON run records and
+the evaluator policy.
 
-Counterpart of ``bluerov2_dynamics_tpu/apps/common.py``.  The differentiable
-Fossen fit's flags (``--fossen-fit*``) come with ROADMAP Queue 1 item 11,
-and argparse rejects them until then.  Every app takes ``device``
-(``None`` means ``cuda``); datasets stay numpy float64 on the host, as in
-the JAX package, and move to the device as float32 where a model runs.
+Counterpart of ``bluerov2_dynamics_tpu/apps/common.py``.  Every app takes
+``device`` (``None`` means ``cuda``); datasets stay numpy float64 on the
+host, as in the JAX package, and move to the device as float32 where a
+model runs.
 """
 
 from __future__ import annotations
@@ -90,6 +90,99 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                          "transitions (koopman.fit_multi); metrics stay on "
                          "the main dataset's test split")
     return ap
+
+
+def add_sysid_args(ap: argparse.ArgumentParser) -> None:
+    """CLI options for the differentiable Fossen coefficient fit
+    (:mod:`bluerov2_dynamics_tpu_torch.models.sysid`)."""
+    g = ap.add_argument_group("differentiable Fossen fit (extension)")
+    g.add_argument("--fossen-fit", action="store_true",
+                   help="fit the 23 Table A1 coefficients to the training "
+                        "split by gradient descent through the rollout and "
+                        "report a 'Fossen (fitted)' metric row (the nominal "
+                        "Fossen row is unchanged)")
+    g.add_argument("--fossen-fit-steps", type=int, default=300,
+                   help="Adam iterations (full-batch; on the card one CUDA "
+                        "graph of an iteration, replayed)")
+    g.add_argument("--fossen-fit-horizon", type=int, default=10,
+                   help="multi-step prediction-loss window length")
+    g.add_argument("--fossen-fit-lr", type=float, default=0.02,
+                   help="Adam learning rate in log-scale space")
+    g.add_argument("--fossen-fit-gains", action="store_true",
+                   help="additionally fit 8 per-thruster gain factors "
+                        "(actuator asymmetry; thruster-input workloads only)")
+    g.add_argument("--fossen-fit-current", action="store_true",
+                   help="additionally estimate a constant ambient NED "
+                        "current (3 additive parameters, m/s)")
+    g.add_argument("--fossen-fit-stderr", action="store_true",
+                   help="report Gauss-Newton/Laplace standard errors per "
+                        "coefficient (identifiability diagnostic; "
+                        "torch.func.hessian through the rollout)")
+    g.add_argument("--fossen-fit-delay", type=int, choices=(0, 1), default=None,
+                   help="which command drives the step from X[k]: 0 = U[k] "
+                        "(evaluator/reference convention, right for real "
+                        "recordings), 1 = U[k+1] (the generated datasets' "
+                        "discrete pairing; see sysid.fit_thruster). Default: "
+                        "1 for generated data, 0 for CSV data")
+
+
+def fit_fossen_from_args(args, X_tr, U_tr, dt, kind: str = "thruster",
+                         method: str = "euler", state: str = "euler12"):
+    """Run the differentiable coefficient fit when ``--fossen-fit`` is set.
+
+    ``X_tr``/``U_tr`` are tensors on the device the fit runs on.  Returns
+    ``(result, seconds)``: a
+    :class:`~bluerov2_dynamics_tpu_torch.models.sysid.SysidResult` (``None``
+    when the flag is off, with 0 s) and the fit's host seconds, graph
+    capture and standard errors included, and prints the fit summary.
+    ``kind`` selects the input contract: ``"thruster"`` (u1..u8 datasets)
+    or ``"wrench"`` (Fx..Mz datasets, with ``state`` euler12/quat13).
+    """
+    if not getattr(args, "fossen_fit", False):
+        return None, 0.0
+    from bluerov2_dynamics_tpu_torch.eval.timing import time_fn
+    from bluerov2_dynamics_tpu_torch.models import sysid
+
+    delay = args.fossen_fit_delay
+    if delay is None:
+        # generated datasets record each command next to the state it
+        # produced (see sysid.fit_thruster); real CSVs pair U[k] with the
+        # state it is about to act on.  The condition matches the
+        # data-selection branch (load_or_generate): --synthetic wins over
+        # --csv, so synthetic data keeps delay 1 even with both set.
+        delay = 1 if (args.synthetic or args.csv is None) else 0
+    kwargs = dict(horizon=args.fossen_fit_horizon, steps=args.fossen_fit_steps,
+                  lr=args.fossen_fit_lr, method=method, input_delay=delay,
+                  fit_current=args.fossen_fit_current,
+                  compute_stderr=getattr(args, "fossen_fit_stderr", False))
+    if kind == "thruster":
+        fit = lambda: sysid.fit_thruster(  # noqa: E731
+            X_tr, U_tr, dt, fit_gains=args.fossen_fit_gains, **kwargs)
+    elif kind == "wrench":
+        fit = lambda: sysid.fit_wrench(X_tr, U_tr, dt, state=state, **kwargs)  # noqa: E731
+    else:
+        raise ValueError(f"unknown sysid kind {kind!r}")
+    res, t_fit = time_fn(fit, warmup=0)
+    losses = res.losses.double().cpu().numpy()
+    ok(f"Fossen coefficients fitted ({args.fossen_fit_steps} Adam steps, "
+       f"horizon {args.fossen_fit_horizon}, input delay {delay}): loss "
+       f"{losses[0]:.3e} -> {losses[-1]:.3e} in {t_fit:.2f} s (a CUDA graph's capture included)")
+    if res.current is not None:
+        c = [f"{v:+.4f}" for v in res.current.tolist()]
+        ok(f"Estimated ambient NED current [m/s]: [{', '.join(c)}]")
+    if res.stderr is not None:
+        scales = np.exp(res.log_scales.double().cpu().numpy())
+        se = res.stderr["s"].double().cpu().numpy()
+        print("[i] Coefficient scales +- Laplace stderr (log-space; inf = "
+              "unidentifiable on this recording; optimistic in absolute "
+              "terms — see sysid._laplace_stderr):")
+        cells = [
+            f"{n} {s:.3f}±{'inf' if not np.isfinite(e) else format(e, '.3f')}"
+            for n, s, e in zip(sysid.COEFF_NAMES, scales, se)
+        ]
+        for row_start in range(0, len(cells), 6):
+            print("      " + "  ".join(f"{c:<16s}" for c in cells[row_start:row_start + 6]))
+    return res, t_fit
 
 
 def require_no_media(args) -> None:

@@ -7,8 +7,10 @@ fused on the card (Euler, or RK4 with ``--integrator rk4``).  The PINc
 weights load from ``--pinc-ckpt``: a reference ``.pt`` state dict, or a
 flax-layout msgpack file whose ``.json`` sidecar carries the training
 configuration; without a checkpoint PINc is trained and saved there, with
-its sidecar.  Media wait for ROADMAP Queue 1 item 16 and the
-``--fossen-fit*`` flags for item 11: the app needs ``--no-media``.
+its sidecar.  ``--fossen-fit`` fits the Fossen coefficients to the
+training split (:mod:`..models.sysid`, with the app's integrator) and adds
+a "Fossen (fitted)" row, on the same kernel, and its open-loop rollout.
+Media wait for ROADMAP Queue 1 item 16: the app needs ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_full_comparison
 --synthetic --recording --steps 45823 --pinc-ckpt models/pinc_best.msgpack
@@ -67,6 +69,7 @@ def parser():
                          "separate artifacts)")
     ap.add_argument("--json-out", type=str, default=None,
                     help="write metrics + timings as JSON to this path")
+    common.add_sysid_args(ap)
     return ap
 
 
@@ -165,8 +168,9 @@ def main(argv=None, device=None):
     and metric timing tables (``rmse``, ``warm_s``, ``cold_s``: name -> H
     -> value), the fits' seconds (``fit_s``), the rollouts' ``(cold,
     warm)`` seconds, the open-loop trajectories (host arrays), the data's
-    seconds, the fitted models (``model``, ``gains``, ``net``) and the
-    train and test splits (host float64)."""
+    seconds, the fitted models (``model``, ``gains``, ``net``), the train
+    and test splits (host float64), and the Fossen fit (``sysid``, None
+    without ``--fossen-fit``) with its seconds (``sysid_s``)."""
     args = parser().parse_args(argv)
     common.require_no_media(args)
     device = resolve_device(device)
@@ -211,6 +215,12 @@ def main(argv=None, device=None):
     if args.pinc_psi_ssa:
         evaluators["PINc (ssa psi)"] = lambda H: pinc.endpoint_rmse(
             net, X_te, U4_te, dt, H, psi_error="ssa")
+    fit_res, sysid_s = common.fit_fossen_from_args(args, X_tr, U_tr, dt, kind="thruster",
+                                                   method=args.integrator)
+    if fit_res is not None:
+        evaluators["Fossen (fitted)"] = fossen_evaluator(
+            dt, test.X, test.U, method=args.integrator, p=fit_res.params, cfg=fit_res.cfg,
+            device=device)
     rmses, times, cold_times = common.timed_metric_table(evaluators)
     fit_s = {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di), "pinc": t_pinc}
     if args.json_out:
@@ -241,6 +251,9 @@ def main(argv=None, device=None):
         "Double Integrator": (lambda: di.simulate(gains, x0, U_seq, dt, variant=di_variant)),
         "PINc (ResDNN)": (lambda: pinc.simulate(net, x0, U4_te[start:start + horizon], dt)),
     }
+    if fit_res is not None:
+        runs["Fossen (fitted)"] = lambda: fossen.simulate_thruster(
+            fit_res.params, fit_res.cfg, lag, x0, U_seq, dt, method=args.integrator)
     preds, rollout_times = {}, {}
     for name, run in runs.items():
         pred, cold, warm = timer(run)
@@ -250,10 +263,13 @@ def main(argv=None, device=None):
              "KOOPMAN": preds["Koopman"], "FOSSEN (BlueROV2)": preds["Fossen (BlueROV2)"],
              "DOUBLE INTEGRATOR": preds["Double Integrator"],
              "PINc (ResDNN)": preds["PINc (ResDNN)"]}
+    if fit_res is not None:
+        trajs["FOSSEN (fitted)"] = preds["Fossen (fitted)"]
     ok("done")
     return {"rmse": rmses, "warm_s": times, "cold_s": cold_times, "fit_s": fit_s,
             "rollout_s": rollout_times, "trajs": trajs, "data_s": data_s, "model": model,
-            "gains": gains, "net": net, "train": train, "test": test}
+            "gains": gains, "net": net, "train": train, "test": test, "sysid": fit_res,
+            "sysid_s": sysid_s}
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ Counterpart of ``bluerov2_dynamics_tpu/apps/tank_koopman.py``: load the
 ridge=0.1, report endpoint RMSE at H = 1/10/100, and roll the model open
 loop over 500 steps.  ``--physics-baseline`` also evaluates the Fossen
 model through the same evaluator (on the card: K2 fused, one launch a
-horizon).  Media wait for ROADMAP Queue 1 item 16, and the
-``--fossen-fit*`` flags for item 11: the app needs ``--no-media``.
+horizon), and ``--fossen-fit`` fits the Fossen coefficients to the
+training split (:mod:`..models.sysid`) and scores the fitted model through
+it too ("Fossen (fitted)").  Media wait for ROADMAP Queue 1 item 16: the
+app needs ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_koopman
 --synthetic --recording --steps 45823 --physics-baseline --no-media``.
@@ -66,8 +68,9 @@ def main(argv=None, device=None):
     """The T2 workload; ``device=None`` means ``cuda``.  Returns the
     open-loop ``pred`` and ``true`` arrays, the RMSE and timing tables
     (``rmse``, ``warm_s``, ``cold_s``: name -> H -> value), the fit's
-    ``(cold, warm)`` seconds, the data's seconds, the model and the
-    train and test splits (host float64)."""
+    ``(cold, warm)`` seconds, the data's seconds, the model, the train
+    and test splits (host float64), and the Fossen fit (``sysid``, None
+    without ``--fossen-fit``) with its seconds (``sysid_s``)."""
     ap = common.base_parser(__doc__)
     ap.add_argument("--physics-baseline", action="store_true")
     ap.add_argument("--decoder", action="store_true",
@@ -79,6 +82,7 @@ def main(argv=None, device=None):
     ap.add_argument("--load-model", type=str, default=None,
                     help="load a saved model (this package's or the JAX "
                          "package's .npz) instead of fitting")
+    common.add_sysid_args(ap)
     args = ap.parse_args(argv)
     common.require_no_media(args)
     device = resolve_device(device)
@@ -114,6 +118,11 @@ def main(argv=None, device=None):
     if args.physics_baseline:
         evaluators["Fossen (BlueROV2)"] = fossen_evaluator(float(ds.dt), test.X, test.U,
                                                            device=device)
+    fit_res, sysid_s = common.fit_fossen_from_args(args, X_tr, U_tr, float(ds.dt),
+                                                   kind="thruster")
+    if fit_res is not None:
+        evaluators["Fossen (fitted)"] = fossen_evaluator(
+            float(ds.dt), test.X, test.U, p=fit_res.params, cfg=fit_res.cfg, device=device)
     rmses, warm, cold = common.timed_metric_table(evaluators)
 
     start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
@@ -121,7 +130,8 @@ def main(argv=None, device=None):
     ok("done")
     return {"pred": pred.double().cpu().numpy(), "true": test.X[start:start + horizon + 1],
             "rmse": rmses, "warm_s": warm, "cold_s": cold, "fit_s": (t_fit_cold, t_fit),
-            "data_s": data_s, "model": model, "train": train, "test": test}
+            "data_s": data_s, "model": model, "train": train, "test": test,
+            "sysid": fit_res, "sysid_s": sysid_s}
 
 
 if __name__ == "__main__":

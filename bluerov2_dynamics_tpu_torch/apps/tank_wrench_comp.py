@@ -7,8 +7,10 @@ through the BlueROV2-heavy effectiveness matrix (``data/wrench.py``), or a
 CSV in the wrench contract, drives a Koopman(12, 6) model, the
 wrench-input Fossen model (on the card: K4 fused, one launch a horizon)
 and a learned double integrator, scored by one endpoint evaluator, then
-rolled open loop.  Media wait for ROADMAP Queue 1 item 16 and the
-``--fossen-fit*`` flags for item 11: the app needs ``--no-media``.
+rolled open loop.  ``--fossen-fit`` fits the wrench model's coefficients
+to the training split (:mod:`..models.sysid`) and adds a "Fossen
+(fitted)" row on the same kernel.  Media wait for ROADMAP Queue 1 item
+16: the app needs ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_wrench_comp
 --synthetic --recording --steps 45823 --no-media``.
@@ -62,9 +64,11 @@ def main(argv=None, device=None):
     """The T3 workload; ``device=None`` means ``cuda``.  Returns the
     open-loop predictions ``koopman``, ``fossen``, ``di`` and ``true``
     (host arrays), the RMSE and timing tables (``rmse``, ``warm_s``,
-    ``cold_s``), the fits' ``(cold, warm)`` seconds, the models and the
-    train and test splits (host float64)."""
+    ``cold_s``), the fits' ``(cold, warm)`` seconds, the models, the train
+    and test splits (host float64), and the Fossen fit (``sysid``, None
+    without ``--fossen-fit``) with its seconds (``sysid_s``)."""
     ap = common.base_parser(__doc__)
+    common.add_sysid_args(ap)
     args = ap.parse_args(argv)
     common.require_no_media(args)
     device = resolve_device(device)
@@ -93,6 +97,11 @@ def main(argv=None, device=None):
         "Fossen (wrench)": fossen_wrench_evaluator(dt, test.X, test.U, device=device),
         "Double Integrator": lambda H: metrics.endpoint_rmse(di_step, X_te, U_te, H),
     }
+    fit_res, sysid_s = common.fit_fossen_from_args(args, X_tr, U_tr, dt, kind="wrench",
+                                                   state="euler12")
+    if fit_res is not None:
+        evaluators["Fossen (fitted)"] = fossen_wrench_evaluator(dt, test.X, test.U, p=fit_res.params,
+                                                    device=device)
     rmses, warm, cold = common.timed_metric_table(evaluators)
 
     start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
@@ -105,7 +114,8 @@ def main(argv=None, device=None):
     return {"koopman": host(predK), "fossen": host(predF), "di": host(predD),
             "true": test.X[start:start + horizon + 1], "rmse": rmses, "warm_s": warm,
             "cold_s": cold, "fit_s": {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di)},
-            "model": model, "gains": gains, "train": train, "test": test}
+            "model": model, "gains": gains, "train": train, "test": test, "sysid": fit_res,
+            "sysid_s": sysid_s}
 
 
 if __name__ == "__main__":

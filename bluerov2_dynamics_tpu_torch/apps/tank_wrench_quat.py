@@ -8,8 +8,10 @@ converted).  Koopman(13, 6) is scored with its quaternion renormalised
 before the error, the quaternion wrench-input Fossen model renormalises
 after every step (on the card: K5 fused, one launch a horizon), and the
 quaternion double integrator renormalises too; then each rolls open loop.
-Media wait for ROADMAP Queue 1 item 16 and the ``--fossen-fit*`` flags
-for item 11: the app needs ``--no-media``.
+``--fossen-fit`` fits the quat13 wrench model's coefficients to the
+training split (:mod:`..models.sysid`) and adds a "Fossen (fitted)" row on
+the same kernel.  Media wait for ROADMAP Queue 1 item 16: the app needs
+``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_wrench_quat
 --synthetic --recording --steps 45823 --no-media``.
@@ -69,6 +71,7 @@ def main(argv=None, device=None):
     :func:`bluerov2_dynamics_tpu_torch.apps.tank_wrench_comp.main`
     returns, for the quat13 models."""
     ap = common.base_parser(__doc__)
+    common.add_sysid_args(ap)
     args = ap.parse_args(argv)
     common.require_no_media(args)
     device = resolve_device(device)
@@ -98,6 +101,11 @@ def main(argv=None, device=None):
         "Fossen (quat)": fossen_quat_evaluator(dt, test.X, test.U, device=device),
         "DI (quat)": lambda H: metrics.endpoint_rmse(di_step, X_te, U_te, H),
     }
+    fit_res, sysid_s = common.fit_fossen_from_args(args, X_tr, U_tr, dt, kind="wrench",
+                                                   state="quat13")
+    if fit_res is not None:
+        evaluators["Fossen (fitted)"] = fossen_quat_evaluator(dt, test.X, test.U, p=fit_res.params,
+                                                    device=device)
     rmses, warm, cold = common.timed_metric_table(evaluators)
 
     start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
@@ -110,7 +118,8 @@ def main(argv=None, device=None):
     return {"koopman": host(predK), "fossen": host(predF), "di": host(predD),
             "true": test.X[start:start + horizon + 1], "rmse": rmses, "warm_s": warm,
             "cold_s": cold, "fit_s": {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di)},
-            "model": model, "gains": gains, "train": train, "test": test}
+            "model": model, "gains": gains, "train": train, "test": test, "sysid": fit_res,
+            "sysid_s": sysid_s}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,571 @@
+"""Differentiable Fossen parameter identification (PyTorch).
+
+Counterpart of ``bluerov2_dynamics_tpu/models/sysid.py``.  The multi-step
+prediction error of the full nonlinear model is differentiated end to end
+through the integrator (autograd through the step loop, the thruster map
+and the ZOH lag filter included) and minimised with Adam over 23 log-scale
+factors on the Table A1 coefficients (mass, displaced volume, inertia
+diagonal, 6 added-mass, 6 linear-damping, 6 quadratic-damping), optionally
+8 per-thruster log-gains and a constant NED current.
+
+All ``N - H`` window starts advance together as one batch; inner step t
+reads the contiguous slices ``U[t + d : t + d + n_start]`` and scores
+against ``X[t + 1 : t + 1 + n_start]`` (no gathers).  On CUDA one Adam
+iteration (loss, backward, update) is captured once as a CUDA graph and
+replayed ``steps`` times, the step count and bias corrections on the
+device and no read-back inside the loop: the twin of the JAX fit being one
+compiled call.  The eager loop is the CPU path and the plain version the
+graph is held against.  With ``mesh=`` each rank takes its contiguous
+block of starts and the ranks all-reduce the loss and the gradients, so
+the objective stays the global mean; that path runs eagerly.
+
+The Laplace standard errors take the Hessian of the same window loss by
+``torch.func.hessian`` (forward over reverse, as ``jax.hessian``); the
+eigen-decomposition and the rule for dead directions run in float64 numpy
+on the host.  Every function the loss reaches is therefore functional: no
+in-place op, no read-back and no branch on a tensor's value.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from bluerov2_dynamics_tpu_torch.device import resolve_device
+from bluerov2_dynamics_tpu_torch.models import fossen
+from bluerov2_dynamics_tpu_torch.models.params import (
+    FossenParams,
+    LagParams,
+    ThrusterConfig,
+    lag_params,
+    thruster_config,
+)
+from bluerov2_dynamics_tpu_torch.models.thrusters import static_thrust
+from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
+
+# Nominal Table A1 coefficient vector in the generator's perturbation
+# layout (``data/synthetic.py::perturbed_fossen_params``):
+# [m, volume, Ix, Iy, Iz, added(6), damping_lin(6), damping_quad(6)].
+NOMINAL_COEFFS = (
+    13.5, 0.0134,
+    0.26, 0.23, 0.37,
+    -6.36, -7.12, -18.68, -0.189, -0.135, -0.222,
+    -13.7, -0.0, -33.0, -0.0, -0.8, -0.0,
+    -141.0, -217.0, -190.0, -1.19, -0.47, -1.5,
+)
+
+# SNAME-notation labels for the 23 coefficients, same order.
+COEFF_NAMES = (
+    "m", "V",
+    "Ix", "Iy", "Iz",
+    "Xud", "Yvd", "Zwd", "Kpd", "Mqd", "Nrd",
+    "Xu", "Yv", "Zw", "Kp", "Mq", "Nr",
+    "Xuu", "Yvv", "Zww", "Kpp", "Mqq", "Nrr",
+)
+
+# optax.adam's defaults
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+GRAPH_WARMUP = 3            # iterations run on a side stream before the capture
+
+
+def params_from_scales(
+    scales,
+    rho: float = 1000.0,
+    g: float = 9.82,
+    cb=(0.0, 0.0, -0.01),
+    current=(0.0, 0.0, 0.0),
+    dtype=torch.float32,
+    device=None,
+) -> FossenParams:
+    """:class:`FossenParams` from 23 coefficient scales, differentiable in
+    ``scales`` (and in ``current`` where it is a tensor).
+
+    The derived fields (``mdiag``, ``minv``, ``gyro``, ``W``, ``B``) are
+    formed in ``dtype`` on the scales' device, in the JAX package's order;
+    ``params_from_scales(torch.ones(23))`` equals ``fossen_params()``.
+    """
+    if device is None and isinstance(scales, torch.Tensor):
+        device = scales.device
+    s = torch.as_tensor(scales, dtype=dtype, device=device)
+    if s.shape != (23,):
+        raise ValueError(f"scales must have shape (23,), got {tuple(s.shape)}")
+    k = _Consts.make(dtype, s.device, cb, current)
+    return _assemble(k.nominal * s, k.cb, k.current, rho, g)
+
+
+class _Consts(NamedTuple):
+    """The builder's constant tensors, made once on the fit's device (a
+    CUDA graph cannot capture their copies from the host)."""
+
+    nominal: torch.Tensor
+    cb: torch.Tensor
+    current: torch.Tensor
+
+    @staticmethod
+    def make(dtype, device, cb=(0.0, 0.0, -0.01), current=(0.0, 0.0, 0.0)) -> "_Consts":
+        return _Consts(torch.as_tensor(NOMINAL_COEFFS, dtype=dtype, device=device),
+                       torch.as_tensor(cb, dtype=dtype, device=device),
+                       torch.as_tensor(current, dtype=dtype, device=device))
+
+
+def _assemble(c, cb, current, rho: float = 1000.0, g: float = 9.82) -> FossenParams:
+    """:class:`FossenParams` from the 23 scaled coefficients ``c``."""
+    m = c[0]
+    volume = c[1]
+    inertia = c[2:5]
+    added = c[5:11]
+    d_lin = -c[11:17]
+    d_quad = -c[17:23]
+    mdiag = torch.cat([m - added[0:3], inertia - added[3:6]])
+    gyro = torch.stack([
+        inertia[2] - inertia[1] + added[4] - added[5],
+        inertia[0] - inertia[2] + added[5] - added[3],
+        inertia[1] - inertia[0] + added[3] - added[4],
+    ])
+    return FossenParams(
+        m=m,
+        W=m * g,
+        B=rho * g * volume,
+        cb=cb,
+        inertia=inertia,
+        added=added,
+        d_lin=d_lin,
+        d_quad=d_quad,
+        mdiag=mdiag,
+        minv=1.0 / mdiag,
+        gyro=gyro,
+        current=current,
+    )
+
+
+class SysidResult(NamedTuple):
+    """Result of a differentiable parameter fit; every tensor detached."""
+
+    params: FossenParams                 # fitted coefficients
+    cfg: Optional[ThrusterConfig]        # thruster config incl. fitted gains (thruster fits)
+    log_scales: torch.Tensor             # (23,) fitted log-scale factors
+    log_gains: Optional[torch.Tensor]    # (8,) fitted per-thruster log-gains or None
+    losses: torch.Tensor                 # (steps,) training-loss history
+    current: Optional[torch.Tensor] = None   # (3,) fitted NED current [m/s] or None
+    stderr: Optional[dict] = None        # per-parameter Laplace stderr (keys of theta)
+
+
+def _window_loss(step, carry0, get_state, X, U, horizon: int, n_start: int,
+                 input_delay: int = 0, block=None):
+    """Mean squared multi-step prediction error over the window starts.
+
+    At inner step t every start k has advanced t+1 steps from X[k] under
+    ``U[k + t + input_delay]``; its prediction is scored against
+    ``X[k + t + 1]``.  ``block = (lo, n)`` runs only starts ``lo .. lo+n-1``
+    (one rank's share) and returns their part of the global mean: squared
+    errors summed and divided by the global count, so that the ranks' parts
+    add up to the whole.
+    """
+    lo, n = (0, n_start) if block is None else block
+    count = n_start * X.shape[-1]
+    carry = carry0
+    errs = []
+    for t in range(horizon):
+        u0 = lo + t + input_delay
+        carry = step(carry, U[u0:u0 + n])
+        d = get_state(carry) - X[lo + t + 1:lo + t + 1 + n]
+        errs.append(torch.mean(d * d) if block is None else torch.sum(d * d) / count)
+    errs = torch.stack(errs)
+    return torch.mean(errs) if block is None else torch.sum(errs) / horizon
+
+
+def lag_history(cfg: ThrusterConfig, lag: LagParams, U):
+    """Per-sample lag-filter states ``(N, 8, 3)`` over a recording.
+
+    Entry ``k`` is the filter state *before* consuming ``U[k]``, from
+    at-rest filters at the start of the recording: the state the thrusters
+    carried when command ``U[k]`` was issued (this is not the wrench
+    history of ``thrusters.effective_wrench_history``).  The filter input
+    is the static-curve thrust of the command, independent of the vehicle
+    state and of every fitted coefficient, so the history is computed once
+    a fit.  A window that starts its lag from zero carries a thrust error
+    for the filter's ~0.3 s settling time, which a gradient fit would bend
+    the coefficients to absorb.
+    """
+    F_cmd = static_thrust(cfg, U)
+    L = torch.zeros((8, 3), dtype=F_cmd.dtype, device=F_cmd.device)
+    AdT = lag.Ad.T
+    hist = []
+    for k in range(F_cmd.shape[0]):
+        hist.append(L)
+        L = L @ AdT + F_cmd[k][..., None] * lag.Bd       # thrusters.lag_step's state update
+    return torch.stack(hist) if hist else L.new_zeros((0, 8, 3))
+
+
+def _flat(theta: dict, names) -> torch.Tensor:
+    return torch.cat([theta[k].reshape(-1) for k in names])
+
+
+def _unflat(flat, like: dict, names) -> dict:
+    parts = flat.split([like[k].numel() for k in names])
+    return {k: v.view_as(like[k]) for k, v in zip(names, parts)}
+
+
+def adam_update(theta: list, grads: list, mu: list, nu: list, count, lr: float) -> None:
+    """One ``optax.adam(lr)`` step, in place and in optax's order: ``count
+    += 1``; ``mu = b1 mu + (1 - b1) g`` and ``nu = b2 nu + (1 - b2) g^2``
+    (as ``(1 - b) g^k + b m``); the bias corrections ``1 - b^count`` in
+    float64 on ``count``'s device, cast to the moments' dtype; ``update =
+    mu_hat / (sqrt(nu_hat) + eps)`` (``eps_root`` 0); ``theta += -lr *
+    update``.  ``count`` is a 0-d float64 tensor, so that no value leaves
+    the device."""
+    b1, b2 = ADAM_B1, ADAM_B2
+    with torch.no_grad():
+        count.add_(1.0)
+        bc1, bc2 = 1 - torch.pow(b1, count), 1 - torch.pow(b2, count)
+        for t, g, m, v in zip(theta, grads, mu, nu):
+            m.copy_((1 - b1) * g + b1 * m)
+            v.copy_((1 - b2) * (g * g) + b2 * v)
+            update = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype)) + ADAM_EPS)
+            t.add_(-lr * update)
+
+
+def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
+              graph: bool = False, reduce: Optional[Callable] = None):
+    """Full-batch Adam over ``steps`` iterations: returns ``(theta, losses
+    (steps,))``, the loss of each iteration at the parameters it starts
+    from.  ``graph``: capture one iteration as a CUDA graph and replay it
+    (a failed capture raises); otherwise the eager loop.  ``reduce(flat)``
+    sums the loss and the gradients over the ranks of a mesh."""
+    names = sorted(theta0)
+    theta = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}
+    leaves = [theta[k] for k in names]
+    mu = [torch.zeros_like(t) for t in leaves]
+    nu = [torch.zeros_like(t) for t in leaves]
+    first = leaves[0]
+    count = torch.zeros((), dtype=torch.float64, device=first.device)
+    hist = torch.empty(steps, dtype=first.dtype, device=first.device)
+
+    def iteration():
+        loss = loss_fn(theta)
+        grads = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        if reduce is not None:
+            flat = reduce(torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads]))
+            loss = flat[0]
+            grads = [g.view_as(t) for g, t in zip(
+                flat[1:].split([t.numel() for t in leaves]), leaves)]
+        adam_update(leaves, grads, mu, nu, count, lr)
+        return loss
+
+    with full_f32():
+        if not graph:
+            for i in range(steps):
+                hist[i] = iteration()
+        elif steps > 0:
+            if reduce is not None:
+                raise ValueError("the CUDA-graph fit runs on one device; a mesh fit runs eagerly")
+            state = leaves + mu + nu + [count]
+            saved = [t.detach().clone() for t in state]
+            side = torch.cuda.Stream(device=first.device)
+            side.wait_stream(torch.cuda.current_stream(first.device))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    iteration()
+            torch.cuda.current_stream(first.device).wait_stream(side)
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                static_loss = iteration()
+            for i in range(steps):
+                g.replay()
+                hist[i].copy_(static_loss)
+            torch.cuda.current_stream(first.device).synchronize()
+            del g
+    return {k: v.detach() for k, v in theta.items()}, hist
+
+
+def _laplace_stderr(loss_fn: Callable, theta: dict, n_resid: int,
+                    reduce: Optional[Callable] = None) -> dict:
+    """Gauss-Newton / Laplace standard errors at the fitted optimum.
+
+    ``torch.func.hessian`` of the mean-squared window loss through the step
+    loop, then ``cov = (2 L* / N) H^{-1}`` with the residual MSE ``L*`` as
+    the noise-variance estimate.  Directions of (near-)zero curvature, such
+    as the scales on zero-valued nominal coefficients, whose gradients
+    vanish identically, are reported as ``inf`` (unidentifiable).  The
+    teacher-forced windows overlap, so the residuals are correlated and the
+    stderrs are optimistic in absolute terms; their relative ordering is
+    the useful output.  ``reduce`` sums the Hessian and the loss over the
+    ranks of a mesh.  Returns float32 tensors keyed as ``theta``.
+    """
+    names = sorted(theta)
+    flat = _flat(theta, names).detach()
+    with full_f32():
+        H = torch.func.hessian(lambda v: loss_fn(_unflat(v, theta, names)))(flat)
+        L = loss_fn(theta).detach()
+        if reduce is not None:
+            both = reduce(torch.cat([L.reshape(1), H.reshape(-1)]))
+            L, H = both[0], both[1:].view_as(H)
+    L = float(L)
+    H = H.double().cpu().numpy()
+    H = (H + H.T) / 2.0
+    diag = np.diag(H).copy()
+    w, V = np.linalg.eigh(H)
+    tol = max(float(w.max()), 0.0) * 1e-9
+    inv_w = np.where(w > tol, 1.0 / np.where(w > tol, w, 1.0), 0.0)
+    cov = (V * inv_w) @ V.T * (2.0 * max(L, 0.0) / max(n_resid, 1))
+    se = np.sqrt(np.maximum(np.diag(cov), 0.0))
+    dead = diag <= max(float(diag.max()), 0.0) * 1e-12
+    se = np.where(dead, np.inf, se)
+    return _unflat(torch.as_tensor(se, dtype=torch.float32, device=flat.device), theta, names)
+
+
+def _mesh_block(mesh, n_start: int):
+    """``((lo, n), reduce)`` of this rank's contiguous block of starts, or
+    ``(None, None)`` without a mesh; the mesh's first axis is used."""
+    if mesh is None:
+        return None, None
+    import torch.distributed as dist
+
+    from bluerov2_dynamics_tpu_torch.parallel.mesh import axis
+    from bluerov2_dynamics_tpu_torch.parallel.sharded import _block
+
+    group, size, index = axis(mesh, mesh.mesh_dim_names[0])
+    lo, hi = _block(n_start, size, index)
+
+    def reduce(flat):
+        dist.all_reduce(flat, group=group)
+        return flat
+
+    return (lo, hi - lo), reduce
+
+
+def _device_of(X, device):
+    """A tensor's own device unless ``device`` is given; else ``device``
+    (``None`` means ``cuda``)."""
+    if device is None and isinstance(X, torch.Tensor):
+        return X.device
+    return resolve_device(device)
+
+
+def _check_delay_and_starts(N: int, horizon: int, input_delay: int) -> int:
+    if input_delay not in (0, 1):
+        raise ValueError(f"input_delay must be 0 or 1, got {input_delay}")
+    n_start = N - horizon - input_delay
+    if n_start <= 0:
+        raise ValueError(f"horizon {horizon} >= dataset length {N}")
+    return n_start
+
+
+def _scaled_params(theta: dict, k: _Consts) -> FossenParams:
+    return _assemble(k.nominal * torch.exp(theta["s"]), k.cb, theta.get("c", k.current))
+
+
+def _gained(cfg: ThrusterConfig, log_gains) -> ThrusterConfig:
+    return cfg._replace(wrench_map=cfg.wrench_map * torch.exp(log_gains)[:, None])
+
+
+class WindowLoss(NamedTuple):
+    """A fit's objective: ``loss_fn(theta) -> 0-d tensor`` and its
+    starting point ``theta0`` (a dict of ``"s"``, 23 log-scales; ``"g"``, 8
+    log-gains; ``"c"``, 3 current components), the global start count, the
+    mesh's ``reduce`` (or None) and, for the thruster model, the thruster
+    configuration and lag it runs with."""
+
+    loss_fn: Callable
+    theta0: dict
+    n_start: int
+    reduce: Optional[Callable]
+    cfg: Optional[ThrusterConfig] = None
+    lag: Optional[LagParams] = None
+
+
+def thruster_loss(X, U, dt: float, horizon: int = 10, *, method: str = "euler",
+                  use_lag: bool = True, lag_warmup: bool = True, fit_gains: bool = False,
+                  fit_current: bool = False, input_delay: int = 0,
+                  cfg: Optional[ThrusterConfig] = None, lag: Optional[LagParams] = None,
+                  mesh=None, dtype=torch.float32, device=None) -> WindowLoss:
+    """The window loss of :func:`fit_thruster`, validated as it validates
+    its inputs; with ``mesh`` this rank's block of starts."""
+    device = _device_of(X, device)
+    cfg = (cfg if cfg is not None else thruster_config(dtype=dtype, device=device)).to(device)
+    lag = (lag if lag is not None else lag_params(dt, dtype=dtype, device=device)).to(device)
+    X = torch.as_tensor(X, dtype=dtype, device=device)
+    U = torch.as_tensor(U, dtype=dtype, device=device)
+    if X.ndim != 2 or X.shape[1] != 12:
+        raise ValueError(f"X must be (N, 12), got {tuple(X.shape)}")
+    if U.shape[0] != X.shape[0] or U.ndim != 2 or U.shape[1] != 8:
+        raise ValueError(f"U must be ({X.shape[0]}, 8), got {tuple(U.shape)}")
+    n_start = _check_delay_and_starts(X.shape[0], horizon, input_delay)
+    block, reduce = _mesh_block(mesh, n_start)
+
+    theta0 = {"s": torch.zeros(23, dtype=dtype, device=device)}
+    if fit_gains:
+        theta0["g"] = torch.zeros(8, dtype=dtype, device=device)
+    if fit_current:
+        theta0["c"] = torch.zeros(3, dtype=dtype, device=device)
+    k = _Consts.make(dtype, device)
+    lo, n = (0, n_start) if block is None else block
+    x0 = X[lo:lo + n]
+    if use_lag and lag_warmup:
+        lag0 = lag_history(cfg, lag, U)[input_delay + lo:input_delay + lo + n]
+    else:
+        lag0 = torch.zeros((n, 8, 3), dtype=dtype, device=device)
+
+    def loss_fn(theta):
+        p = _scaled_params(theta, k)
+        c = _gained(cfg, theta["g"]) if fit_gains else cfg
+        step = fossen.make_thruster_step(p, c, lag, dt, method, use_lag)
+        return _window_loss(step, (x0, lag0), lambda carry: carry[0], X, U, horizon, n_start,
+                            input_delay, block)
+
+    return WindowLoss(loss_fn, theta0, n_start, reduce, cfg, lag)
+
+
+def wrench_loss(X, TAU, dt: float, horizon: int = 10, *, method: str = "euler",
+                state: str = "euler12", fit_current: bool = False, input_delay: int = 0,
+                mesh=None, dtype=torch.float32, device=None) -> WindowLoss:
+    """The window loss of :func:`fit_wrench`, validated as it validates
+    its inputs; with ``mesh`` this rank's block of starts."""
+    n_state = {"euler12": 12, "quat13": 13}.get(state)
+    if n_state is None:
+        raise ValueError(f"unknown state convention {state!r}")
+    device = _device_of(X, device)
+    X = torch.as_tensor(X, dtype=dtype, device=device)
+    TAU = torch.as_tensor(TAU, dtype=dtype, device=device)
+    if X.ndim != 2 or X.shape[1] != n_state:
+        raise ValueError(f"X must be (N, {n_state}) for {state}, got {tuple(X.shape)}")
+    if TAU.shape[0] != X.shape[0] or TAU.ndim != 2 or TAU.shape[1] != 6:
+        raise ValueError(f"TAU must be ({X.shape[0]}, 6), got {tuple(TAU.shape)}")
+    n_start = _check_delay_and_starts(X.shape[0], horizon, input_delay)
+    block, reduce = _mesh_block(mesh, n_start)
+
+    k = _Consts.make(dtype, device)
+    lo, n = (0, n_start) if block is None else block
+    x0 = X[lo:lo + n]
+    theta0 = {"s": torch.zeros(23, dtype=dtype, device=device)}
+    if fit_current:
+        theta0["c"] = torch.zeros(3, dtype=dtype, device=device)
+
+    def loss_fn(theta):
+        step = fossen.make_wrench_step(_scaled_params(theta, k), dt, method, state)
+        return _window_loss(step, x0, lambda carry: carry, X, TAU, horizon, n_start,
+                            input_delay, block)
+
+    return WindowLoss(loss_fn, theta0, n_start, reduce)
+
+
+def _use_graph(graph: Optional[bool], device: torch.device, mesh) -> bool:
+    if graph is None:
+        return device.type == "cuda" and mesh is None
+    if graph and device.type != "cuda":
+        raise ValueError("graph=True needs CUDA tensors")
+    return bool(graph)
+
+
+def fit_thruster(
+    X,
+    U,
+    dt: float,
+    horizon: int = 10,
+    steps: int = 300,
+    lr: float = 0.02,
+    *,
+    method: str = "euler",
+    use_lag: bool = True,
+    lag_warmup: bool = True,
+    fit_gains: bool = False,
+    fit_current: bool = False,
+    compute_stderr: bool = False,
+    input_delay: int = 0,
+    cfg: Optional[ThrusterConfig] = None,
+    lag: Optional[LagParams] = None,
+    mesh=None,
+    dtype=torch.float32,
+    device=None,
+    graph: Optional[bool] = None,
+) -> SysidResult:
+    """Fit the 23 Table A1 coefficients of the thruster-input model.
+
+    ``X``: ``(N, 12)`` recorded euler12 states, ``U``: ``(N, 8)`` thruster
+    commands (the T2/T5/T6 dataset contract), on the device of ``X`` when
+    it is a tensor, else on ``device`` (``None`` means ``cuda``).
+    ``fit_gains`` also learns 8 per-thruster gain factors (scaling the
+    wrench-map rows); ``fit_current`` a constant ambient NED current (3
+    additive parameters, m/s).  The lag filter runs as the evaluator runs
+    it (per-start state, advanced once a step), warm-started per window
+    from :func:`lag_history` when ``lag_warmup``.
+
+    ``input_delay``: which command drives the step from X[k]: 0 pairs it
+    with U[k] (the evaluator convention, right for real recordings), 1
+    with U[k+1] (the generated recordings, which record each command next
+    to the state it produced).  ``mesh`` (first axis used) splits the
+    window starts over the ranks.  ``graph`` (default: on CUDA without a
+    mesh) runs the fit as a replayed CUDA graph of one iteration.
+    """
+    device = _device_of(X, device)
+    wl = thruster_loss(
+        X, U, dt, horizon, method=method, use_lag=use_lag, lag_warmup=lag_warmup,
+        fit_gains=fit_gains, fit_current=fit_current, input_delay=input_delay, cfg=cfg,
+        lag=lag, mesh=mesh, dtype=dtype, device=device)
+    theta, losses = _run_adam(wl.loss_fn, wl.theta0, steps, lr,
+                              _use_graph(graph, device, mesh), wl.reduce)
+    stderr = None
+    if compute_stderr:
+        stderr = _laplace_stderr(wl.loss_fn, theta, horizon * wl.n_start * 12, wl.reduce)
+    log_gains = theta.get("g")
+    return SysidResult(
+        params=_scaled_params(theta, _Consts.make(dtype, device)),
+        cfg=_gained(wl.cfg, log_gains) if fit_gains else wl.cfg,
+        log_scales=theta["s"],
+        log_gains=log_gains,
+        losses=losses,
+        current=theta.get("c"),
+        stderr=stderr,
+    )
+
+
+def fit_wrench(
+    X,
+    TAU,
+    dt: float,
+    horizon: int = 10,
+    steps: int = 300,
+    lr: float = 0.02,
+    *,
+    method: str = "euler",
+    state: str = "euler12",
+    fit_current: bool = False,
+    compute_stderr: bool = False,
+    input_delay: int = 0,
+    mesh=None,
+    dtype=torch.float32,
+    device=None,
+    graph: Optional[bool] = None,
+) -> SysidResult:
+    """Fit the 23 coefficients of a wrench-input model (euler12 or quat13).
+
+    ``X``: ``(N, 12)`` or ``(N, 13)`` states matching ``state``; ``TAU``:
+    ``(N, 6)`` recorded body wrenches (the T3/T4 dataset contract).  The
+    quat13 step renormalises the quaternion after every step, as the
+    apps' evaluator does.  ``fit_current``, ``input_delay``, ``mesh``,
+    ``device`` and ``graph`` as in :func:`fit_thruster`.
+    """
+    device = _device_of(X, device)
+    wl = wrench_loss(X, TAU, dt, horizon, method=method, state=state, fit_current=fit_current,
+                     input_delay=input_delay, mesh=mesh, dtype=dtype, device=device)
+    theta, losses = _run_adam(wl.loss_fn, wl.theta0, steps, lr,
+                              _use_graph(graph, device, mesh), wl.reduce)
+    stderr = None
+    if compute_stderr:
+        n_state = 12 if state == "euler12" else 13
+        stderr = _laplace_stderr(wl.loss_fn, theta, horizon * wl.n_start * n_state, wl.reduce)
+    return SysidResult(
+        params=_scaled_params(theta, _Consts.make(dtype, device)),
+        cfg=None,
+        log_scales=theta["s"],
+        log_gains=None,
+        losses=losses,
+        current=theta.get("c"),
+        stderr=stderr,
+    )

@@ -49,6 +49,28 @@ Phases (any failure raises and ends the run with a non-zero code):
      the DI and PINc RMSEs and the committed PINc's forward against the
      same port functions in float64 on the host CPU, finite losses; the
      device-busy share of the PINc endpoint and of training steps;
+   - the differentiable Fossen identification inside those app runs (no
+     recording is made for it): T6 with ``--fossen-fit --fossen-fit-stderr
+     --fossen-fit-gains --fossen-fit-current`` (36,658 training rows,
+     horizon 10, 300 Adam steps, one CUDA graph of an iteration replayed),
+     T5, T2 and T4 with ``--fossen-fit``, T3 with ``--fossen-fit
+     --fossen-fit-current``; each app's "Fossen (fitted)" row runs its
+     kernel (K2 Euler/RK4, K4, K5) under the fitted coefficients, gains
+     and current.  Checked: finite, falling losses; each fitted row against
+     its plain version; T6's fitted row below its nominal one at H = 10 and
+     100; T6's stderrs ``inf`` exactly at Yv, Kp, Nr; the graph fit against
+     the eager loop at T6's shape over 20 steps (bit for bit); the window
+     loss and its gradient at T6's fitted point against float64 on the
+     host CPU; K2 (Euler, RK4), K4 and K5 under fitted values in both forms
+     against their plain versions; then, in phase 6, ``mesh=`` at world 1
+     on the one-rank NCCL group against ``mesh=None``.  Timed: the fits,
+     an eager iteration, the stderrs (and their peak memory); the
+     profiler's device events and busy share of an eager iteration and of
+     the graph fit;
+   - the physics demo (:func:`demo_runs`): ``apps.demo`` ``euler`` and
+     ``ode`` at their defaults, ``ode --bdf`` and ``ode --tether`` cut to
+     ``--t-end 0.3``, each endpoint against the same port call in float64
+     on the host CPU;
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
      ``make_rollout_final_cuda``: one C call, one kernel (the profiler
      counts its device events);
@@ -99,8 +121,8 @@ Phases (any failure raises and ends the run with a non-zero code):
    is held by its increment, the mix probe at both quat13 budgets);
 8. the measured ceilings of K1-K7 from the probes' rates, and the
    measured price of one sinf and one rsqrtf in FMA-tree flops;
-9. a ``koopman apps:`` and a ``learned apps:`` JSON line, one JSON line
-   ``{"kernels": [...]}``,
+9. a ``koopman apps:``, a ``learned apps:`` and a ``demo:`` JSON line, one
+   JSON line ``{"kernels": [...]}``,
    then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -134,6 +156,25 @@ LEARNED_ARGS = ["--synthetic", "--recording", "--steps", str(T2_STEPS), "--no-me
                 "--pinc-psi-ssa"]
 T34_ARGS = ["--synthetic", "--recording", "--steps", "20000", "--no-media"]
 TRAIN_EPOCHS = 3                    # batch 256, rollout 10 steps x 16 windows
+# the differentiable Fossen fit, added to the app runs above (300 Adam steps,
+# horizon 10, input delay 1 on the generated recording: the apps' defaults)
+T2_FIT = ["--fossen-fit"]
+T6_FIT = ["--fossen-fit", "--fossen-fit-stderr", "--fossen-fit-gains", "--fossen-fit-current"]
+T5_FIT = ["--fossen-fit"]
+T3_FIT = ["--fossen-fit", "--fossen-fit-current"]
+T4_FIT = ["--fossen-fit"]
+FIT_CHECK_STEPS = 20                # the graph fit against the eager loop, at T6's shape
+ZERO_NOMINAL = (12, 14, 16)         # Yv, Kp, Nr: zero in Table A1, unidentifiable (inf stderr)
+# the window loss and its gradient on the card (float32) against float64 on
+# the host CPU at T6's start and fitted points (at the fitted point, where
+# the gradient is near zero, its error over the start's |grad|); mesh= at
+# world 1 against mesh=None at the JAX package's tolerances
+# (tests/test_sysid.py): losses, log-scales
+FIT_F64_RTOL = 1e-3
+MESH_RTOL = {"losses": 2e-4, "scales": 1e-3}
+# the demo: its endpoints on the card (float32) against float64 on the host
+DEMO_TETHER_T_END = 0.3             # 30 outer steps x 40 RK4 substeps, eager
+DEMO_ATOL = 1e-4
 TRAIN_PROFILE_STEPS = 5             # minibatch steps traced for the device-busy share
 # The Koopman RMSEs on the card (float32 k-means, lifts and propagation; the
 # normal equations in float64) against the same port functions in float64
@@ -199,6 +240,9 @@ TOL = {
     # the same operations on states of order one (the plain versions' rows
     # differ only by FMA contraction)
     "window_shapes": (0.0, 2e-5),
+    # K2/K4/K5 under a fit's coefficients, gains and current on the apps'
+    # test splits, H = 100: endpoints at atol 2e-5, fused sums at rtol 1e-5
+    "fitted_endpoints": (0.0, 2e-5),
     # K8 at CHECK_ITERS: one rounding of a fused multiply-add where the
     # plain version has two, over 16 dependent steps.  The fma probe is held
     # by its increment (cuda_probes.fma_peak_increment): its output moves
@@ -394,9 +438,283 @@ def device_busy_share(fn):
     return busy / wall_us
 
 
+def fitted_row(app, run, plain_sq, X, U, nominal, card) -> dict:
+    """An app's differentiable Fossen fit: finite, falling losses, and its
+    "Fossen (fitted)" row (the app's fused kernel under the fitted
+    coefficients) against the plain version on the same card inputs.
+    Returns the fit's summary for the JSON line."""
+    from bluerov2_dynamics_tpu_torch.apps import common
+
+    res = run["sysid"]
+    losses = res.losses.double().cpu().numpy()
+    print(f"{app} Fossen fit: {len(losses)} Adam steps in {run['sysid_s']:.3f} s (the app's "
+          f"host clock), loss {losses[0]:.6e} -> {losses[-1]:.6e}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{app} Fossen fit: losses {losses[0]} -> {losses[-1]}")
+    rel = {}
+    for H in H_APP:
+        want = float(common.fused_rmse(lambda X_, U_: plain_sq(X_, U_, H), X, U, H))
+        got = run["rmse"]["Fossen (fitted)"][H]
+        close(got, want, TOL["rmse"][0], f"{app} Fossen (fitted) H={H} (kernel vs plain)")
+        rel[H] = abs(got - want) / abs(want)
+    warm = run["warm_s"]["Fossen (fitted)"]
+    print(f"{app} Fossen (fitted) row, warm ms at H = {', '.join(map(str, H_APP))}: "
+          + ", ".join(f"{1e3 * warm[H]:.4f}" for H in H_APP) + f"; the fit {run['sysid_s']:.3f} s "
+          f"[{card}]")
+    return dict(seconds=run["sysid_s"], steps=len(losses), loss_first=losses[0],
+                loss_last=losses[-1], rmse=run["rmse"]["Fossen (fitted)"],
+                nominal_rmse=run["rmse"][nominal],
+                table_warm_ms={H: 1e3 * v for H, v in run["warm_s"]["Fossen (fitted)"].items()},
+                rel_vs_plain=rel,
+                current=None if res.current is None else res.current.tolist())
+
+
+def fit_checks(dev, card, t6, t5, t3, t4):
+    """The fits of the app runs, checked further on the card: the graph
+    fit against the eager loop at T6's shape over FIT_CHECK_STEPS steps;
+    an eager iteration's host time, device events and busy share, and the
+    graph fit's; the stderrs' time and peak memory; the window loss and its
+    gradient at T6's fitted point against float64 on the host CPU; K2
+    (Euler, RK4), K4 and K5 under the fitted values in both forms against
+    their plain versions.  Returns ``(summary, context for the mesh
+    check)``."""
+    from bluerov2_dynamics_tpu_torch.eval.timing import host_ms, profile_calls
+    from bluerov2_dynamics_tpu_torch.models import sysid
+    from bluerov2_dynamics_tpu_torch.models.params import lag_params
+    from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
+    from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
+
+    cpu = torch.device("cpu")
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    lag = lag_params(DT, device=dev)
+    res6 = t6["sysid"]
+    X_tr, U_tr = f32(t6["train"].X), f32(t6["train"].U)
+    kw = dict(horizon=10, lr=0.02, input_delay=1, fit_gains=True, fit_current=True)
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # the lag history alone (a step loop over the training split, once a fit)
+    _, lag_s = timed(lambda: sysid.lag_history(t6["sysid"].cfg, lag, U_tr))
+    # the graph fit against the eager loop, bit for bit
+    graph, graph_s = timed(lambda: sysid.fit_thruster(
+        X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, graph=True, **kw))
+    eager, eager_s = timed(lambda: sysid.fit_thruster(
+        X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, graph=False, **kw))
+    fields = ("losses", "log_scales", "log_gains", "current")
+    same = {f: torch.equal(getattr(graph, f), getattr(eager, f)) for f in fields}
+    parted = (graph.losses != eager.losses).nonzero().flatten().tolist()
+    print(f"T6 fit, graph against eager over {FIT_CHECK_STEPS} steps at {X_tr.shape[0]} rows: the "
+          f"same bits {same}; first iteration where the losses part: "
+          f"{parted[0] if parted else None}; graph {graph_s:.3f} s, eager {eager_s:.3f} s "
+          f"(lag history, warm-up and capture included) [{card}]")
+    if not all(same.values()):
+        fail(f"the graph fit and the eager fit differ ({same}; losses part at {parted[:1]})")
+
+    # an eager iteration: host time, device events, busy share
+    wl = sysid.thruster_loss(X_tr, U_tr, DT, 10, input_delay=1, fit_gains=True, fit_current=True)
+    fitted = {"s": res6.log_scales, "g": res6.log_gains, "c": res6.current}
+    theta = {k: v.clone().requires_grad_(True) for k, v in fitted.items()}
+    leaves = [theta[k] for k in sorted(theta)]
+    mu, nu = [torch.zeros_like(t) for t in leaves], [torch.zeros_like(t) for t in leaves]
+    count = torch.zeros((), dtype=torch.float64, device=dev)
+
+    def iteration():
+        loss = wl.loss_fn(theta)
+        sysid.adam_update(leaves, torch.autograd.grad(loss, leaves), mu, nu, count, 0.02)
+        return loss
+
+    it_ms = sorted(host_ms(iteration, calls=5))
+    events, wall_us = profile_calls(iteration, calls=3)
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    se, stderr_s = timed(lambda: sysid._laplace_stderr(wl.loss_fn, fitted, 10 * wl.n_start * 12))
+    peak = torch.cuda.max_memory_allocated(dev)
+    graph_app_s = t6["sysid_s"] - stderr_s
+    out["T6_fit"] = dict(
+        rows=X_tr.shape[0], starts=wl.n_start, graph_vs_eager_same_bits=same, lag_history_s=lag_s,
+        graph_s_20=graph_s, eager_s_20=eager_s, eager_ms_an_iteration=it_ms[len(it_ms) // 2],
+        graph_ms_an_iteration=1e3 * (graph_app_s - graph_s) / (len(res6.losses) - FIT_CHECK_STEPS),
+        app_fit_s=t6["sysid_s"], stderr_s=stderr_s, stderr_peak_gib=peak / 2 ** 30,
+        stderr_base_gib=base / 2 ** 30, launches_an_iteration=len(events) / 3,
+        eager_busy_share=busy_us / wall_us if events else None,
+        iteration_device_ms=1e-3 * busy_us / 3 if events else None)
+    o = out["T6_fit"]
+    # a replay launches the same kernels: their device time over its wall time
+    o["graph_busy_share"] = (o["iteration_device_ms"] / o["graph_ms_an_iteration"]
+                             if events else None)
+    print(f"T6 fit: an eager iteration {o['eager_ms_an_iteration']:.2f} ms (median of 5), "
+          f"{o['launches_an_iteration']:.0f} device events, busy {busy_us / 3:.1f} of "
+          f"{wall_us / 3:.1f} us under the profiler = {o['eager_busy_share']}; the app's "
+          f"{len(res6.losses)} steps {graph_app_s:.3f} s without its stderrs = "
+          f"{o['graph_ms_an_iteration']:.2f} ms a replay beyond the first {FIT_CHECK_STEPS} "
+          f"(an iteration's kernels over it: {o['graph_busy_share']}); the lag history "
+          f"{lag_s:.3f} s; stderrs "
+          f"{stderr_s:.3f} s, peak {peak / 2 ** 30:.3f} GiB (base {base / 2 ** 30:.3f}) "
+          f"[{card}]")
+    if not all(np.array_equal(np.isinf(se[k].cpu().numpy()), np.isinf(res6.stderr[k].cpu().numpy()))
+               for k in se):
+        fail("the stderrs of a second call differ in their inf entries from the app's")
+
+    # the window loss and its gradient: float32 on the card against float64
+    # on the host CPU (and float32 there), at T6's start and fitted points
+    t0 = time.perf_counter()
+    wl64 = sysid.thruster_loss(t6["train"].X, t6["train"].U, DT, 10, input_delay=1, fit_gains=True,
+                               fit_current=True, dtype=torch.float64, device=cpu)
+    wl32h = sysid.thruster_loss(t6["train"].X, t6["train"].U, DT, 10, input_delay=1,
+                                fit_gains=True, fit_current=True, device=cpu)
+
+    def value_and_grad(w, point, dtype, device):
+        th = {k: v.detach().to(dtype=dtype, device=device).requires_grad_(True)
+              for k, v in point.items()}
+        names = sorted(th)
+        loss = w.loss_fn(th)
+        grad = torch.autograd.grad(loss, [th[k] for k in names])
+        return float(loss.detach()), torch.cat([g.reshape(-1) for g in grad]).double().cpu()
+
+    start = {k: torch.zeros_like(v) for k, v in fitted.items()}
+    grads = {}
+    for label, point in (("start", start), ("fitted", fitted)):
+        l32, g32 = value_and_grad(wl, point, torch.float32, dev)
+        l32h, g32h = value_and_grad(wl32h, point, torch.float32, cpu)
+        l64, g64 = value_and_grad(wl64, point, torch.float64, cpu)
+        grads[label] = dict(
+            loss_rel=abs(l32 - l64) / abs(l64),
+            grad_rel=float(torch.linalg.norm(g32 - g64) / torch.linalg.norm(g64)),
+            host_f32_grad_rel=float(torch.linalg.norm(g32h - g64) / torch.linalg.norm(g64)),
+            grad_norm=float(torch.linalg.norm(g64)), loss=l64)
+    scale = grads["start"]["grad_norm"]
+    for label, g in grads.items():
+        g["grad_err_over_start_norm"] = g["grad_rel"] * g["grad_norm"] / scale
+        print(f"T6 window loss at the {label} point: card float32 against host float64: loss rel "
+              f"{g['loss_rel']:.3e}, gradient rel {g['grad_rel']:.3e} (the host's float32 "
+              f"{g['host_f32_grad_rel']:.3e}), |grad| {g['grad_norm']:.3e}, the error over the "
+              f"start's |grad| {g['grad_err_over_start_norm']:.3e} (rtol {FIT_F64_RTOL:g})")
+    print(f"float64 and float32 on the host: {time.perf_counter() - t0:.1f} s")
+    # at the fitted point the gradient is near zero, so its own relative
+    # error is float32's rounding of the residuals: it is held against the
+    # fit's gradient scale, the start's |grad|
+    if not (all(g["loss_rel"] <= FIT_F64_RTOL for g in grads.values())
+            and grads["start"]["grad_rel"] <= FIT_F64_RTOL
+            and grads["fitted"]["grad_err_over_start_norm"] <= FIT_F64_RTOL):
+        fail(f"the window loss or its gradient on the card is off float64: {grads}")
+    out["T6_fit"]["vs_float64"] = grads
+
+    # K2, K4 and K5 under the fitted values, both forms, against the plain versions
+    X6, U6 = f32(t6["test"].X), f32(t6["test"].U)
+    X3, W3 = f32(t3["test"].X), f32(t3["test"].U)
+    X4, W4 = f32(t4["test"].X), f32(t4["test"].U)
+    p6, c6, p5, c5 = res6.params, res6.cfg, t5["sysid"].params, t5["sysid"].cfg
+    cases = {  # name: (endpoint fn, fused fn, plain endpoints, X, input) at H
+        "K2 Euler, T6's fit (gains, current)": lambda H: (
+            ce.make_endpoint_final_cuda(p6, c6, lag, DT, H, "euler"),
+            ce.make_endpoint_sq_cuda(p6, c6, lag, DT, H, "euler"),
+            lambda: ce.endpoint_final_plain(p6, c6, lag, X6, U6, DT, H, "euler"), X6, U6),
+        "K2 RK4, T6's fit (gains, current)": lambda H: (
+            ce.make_endpoint_final_cuda(p6, c6, lag, DT, H, "rk4"),
+            ce.make_endpoint_sq_cuda(p6, c6, lag, DT, H, "rk4"),
+            lambda: ce.endpoint_final_plain(p6, c6, lag, X6, U6, DT, H, "rk4"), X6, U6),
+        "K2 RK4, T5's fit": lambda H: (
+            ce.make_endpoint_final_cuda(p5, c5, lag, DT, H, "rk4"),
+            ce.make_endpoint_sq_cuda(p5, c5, lag, DT, H, "rk4"),
+            lambda: ce.endpoint_final_plain(p5, c5, lag, X6, U6, DT, H, "rk4"), X6, U6),
+    }
+    for app, X, W, fin, sq, pl in (
+            ("T3", X3, W3, ce.make_endpoint_final_cuda_wrench, ce.make_endpoint_sq_cuda_wrench,
+             ce.endpoint_final_wrench_plain),
+            ("T4", X4, W4, cq.make_endpoint_final_cuda_quat, cq.make_endpoint_sq_cuda_quat,
+             cq.endpoint_final_quat_plain)):
+        k = "K4" if app == "T3" else "K5"
+        for label, pf in ((f"{app}'s fit", {"T3": t3, "T4": t4}[app]["sysid"].params),
+                          ("T6's fit (current)", p6)):
+            cases[f"{k}, {label}"] = (
+                lambda H, fin=fin, sq=sq, pl=pl, pf=pf, X=X, W=W: (
+                    fin(pf, DT, H, "euler"), sq(pf, DT, H, "euler"),
+                    lambda: pl(pf, X, W, DT, H, "euler"), X, W))
+    checked = {}
+    for name, make in cases.items():
+        for H in H_APP[1:]:
+            final_fn, sq_fn, plain, X, V = make(H)
+            want = plain()
+            print(f"{name}, H={H}, endpoints:", end=" ")
+            e = max_err(final_fn(X, V), want, "fitted_endpoints")
+            bits = {sq_fn(X, V).cpu().numpy().tobytes() for _ in range(10)}
+            got, want_sq = float(sq_fn(X, V)), float(ce.endpoint_sq(want, X, H))
+            close(got, want_sq, TOL["window_sq"][0], f"{name}, H={H}: fused sum vs the plain version's")
+            if len(bits) != 1:
+                fail(f"{name}, H={H}: ten calls gave {len(bits)} sums")
+            checked[f"{name}, H={H}"] = dict(endpoint_err=e, sq_rel=abs(got - want_sq) / abs(want_sq))
+    print("K2 (Euler, RK4), K4 and K5 under the fitted coefficients, gains and current agree with "
+          "their plain versions; the fused sums give the same bits on ten calls")
+    out["kernels_under_fitted_values"] = checked
+    return out, dict(X_tr=X_tr, U_tr=U_tr, kw=kw, eager=eager)
+
+
+def demo_runs(dev, card) -> dict:
+    """The physics demo (``apps.demo.main``) on the card: ``euler`` and
+    ``ode`` at their defaults, ``ode --bdf``, ``ode --tether`` cut to
+    DEMO_TETHER_T_END; each endpoint (the ROV's 12 states; the BDF's
+    position) against the same port call in float64 on the host CPU."""
+    import contextlib
+    import io
+
+    from bluerov2_dynamics_tpu_torch.apps import demo
+
+    f64 = dict(dtype=torch.float64, device="cpu")
+    runs = (
+        ("euler", ["euler"], lambda: demo.run_euler(**f64)),
+        ("ode", ["ode"], lambda: demo.run_ode(**f64)),
+        ("ode --bdf", ["ode", "--bdf"], lambda: demo.run_ode(bdf_check=True, **f64)),
+        ("ode --tether", ["ode", "--tether", "--t-end", str(DEMO_TETHER_T_END)],
+         lambda: demo.run_ode(t_end=DEMO_TETHER_T_END, use_tether=True, **f64)),
+    )
+
+    def bdf_end(text):
+        m = re.search(r"BDF endpoint pos: \[(.*)\]", text)
+        return np.array(m.group(1).split(), float)
+
+    out = {}
+    for label, argv, host in runs:
+        buf, hbuf = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            traj = demo.main(argv, device=dev)
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(hbuf):
+            ref = host()
+        host_s = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        if traj.shape != ref.shape or not np.isfinite(traj).all():
+            fail(f"demo {label}: trajectory {traj.shape} (host {ref.shape}) or not finite")
+        err = float(np.abs(traj[-1, :12] - ref[-1, :12]).max())
+        entry = dict(seconds=secs, host_f64_seconds=host_s, steps=traj.shape[0] - 1,
+                     lines=len(lines), endpoint_err=err)
+        extra = ""
+        if "--bdf" in argv:
+            entry["bdf_err"] = float(np.abs(bdf_end(buf.getvalue()) - bdf_end(hbuf.getvalue())).max())
+            extra = f"; BDF endpoint max|card - host| {entry['bdf_err']:.3e}"
+        print(f"demo {label}: {secs:.3f} s on the card, {traj.shape[0] - 1} steps, {len(lines)} lines "
+              f"printed (last: {lines[-1]}); float64 on the host CPU {host_s:.3f} s; the endpoint's "
+              f"ROV state max|card - host| {err:.3e}{extra} (atol {DEMO_ATOL:g}) [{card}]")
+        if err > DEMO_ATOL or entry.get("bdf_err", 0.0) > DEMO_ATOL:
+            fail(f"demo {label}: the card's endpoint is {err} from float64 on the host")
+        out[label] = entry
+    return out
+
+
 def koopman_apps(dev, card, drive) -> dict:
     """The Koopman apps T2 (``tank_koopman``: the pseudo recording at its
-    full 45,823 steps, 500 RBFs, the Fossen baseline on K2 fused; then
+    full 45,823 steps, 500 RBFs, the Fossen baseline on K2 fused, and with
+    ``--fossen-fit`` the fitted row on K2 under the fitted values; then
     ``--koopman-conv``, a 3 x 3 ``--sweep`` and ``--streaming-chunk 1024``
     on the same recording) and T1 (``sim_koopman`` at its defaults), each
     with the launch counts set to 0 before and read after, and their
@@ -409,6 +727,8 @@ def koopman_apps(dev, card, drive) -> dict:
     from bluerov2_dynamics_tpu_torch.data import synthetic
     from bluerov2_dynamics_tpu_torch.eval.timing import host_ms, profile_calls
     from bluerov2_dynamics_tpu_torch.models import koopman
+    from bluerov2_dynamics_tpu_torch.models.params import lag_params
+    from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
     from bluerov2_dynamics_tpu_torch.ops import precision
 
     out, counts = {}, {}
@@ -455,12 +775,12 @@ def koopman_apps(dev, card, drive) -> dict:
         return rel
 
     # --- T2 ------------------------------------------------------------------------
-    t2 = drive("T2 app (tank_koopman.main)", ("window_sq",),
-               lambda: tank_koopman.main(T2_ARGS, device=dev), into=counts)
-    # each horizon's baseline call is timed cold and warm: one launch a call
-    if counts["window_sq"] != 2 * len(H_APP):
-        fail(f"T2 app: {counts['window_sq']} K2 launches, not one a call of the Fossen row "
-             f"(3 horizons, cold and warm)")
+    t2 = drive("T2 app (tank_koopman.main --fossen-fit)", ("window_sq",),
+               lambda: tank_koopman.main(T2_ARGS + T2_FIT, device=dev), into=counts)
+    # each horizon's nominal and fitted call is timed cold and warm: one launch a call
+    if counts["window_sq"] != 4 * len(H_APP):
+        fail(f"T2 app: {counts['window_sq']} K2 launches, not one a call of the Fossen rows "
+             f"(nominal and fitted, 3 horizons, cold and warm)")
     train, test = t2["train"], t2["test"]
     for part in (train, test):
         if not (np.isfinite(part.X).all() and np.isfinite(part.U).all()):
@@ -483,6 +803,9 @@ def koopman_apps(dev, card, drive) -> dict:
     rmse = {H: t2["rmse"]["Koopman"][H] for H in H_APP}
     rel = host_check("T2", rmse, model, train, test, 500, 3.0, 0.1)
     X_te, U_te = f32(test.X), f32(test.U)
+    res2, lag = t2["sysid"], lag_params(DT, device=dev)
+    fit2 = fitted_row("T2", t2, lambda X, U, H: ce.window_sq_plain(
+        res2.params, res2.cfg, lag, X, U, DT, H, "euler"), X_te, U_te, "Fossen (BlueROV2)", card)
     ms = {"scan": {}, "conv": {}}
     for H in H_APP:
         conv = float(koopman.multistep_rmse(model, X_te, U_te, H, method="conv"))
@@ -542,7 +865,7 @@ def koopman_apps(dev, card, drive) -> dict:
         rmse=rmse,
         fossen_rmse=t2["rmse"]["Fossen (BlueROV2)"], warm_s=t2["warm_s"], cold_s=t2["cold_s"],
         rel_vs_float64=rel, multistep_ms=ms, k2_launches=counts["window_sq"], runs=runs,
-        tf32_matmul_err=tf32_moves, f32_matmul_err=f32_err)
+        tf32_matmul_err=tf32_moves, f32_matmul_err=f32_err, sysid=fit2)
     print(f"T2: generator (graph) {t2['data_s']:.2f} s for {T2_STEPS} steps, eager "
           f"{1e3 * eager_step:.4f} ms a step; fit cold {t2['fit_s'][0]:.3f} / warm "
           f"{t2['fit_s'][1]:.3f} s; sweep 3x3 cold {runs['sweep']['fit_s'][0]:.3f} / warm "
@@ -573,14 +896,17 @@ def learned_apps(dev, card, drive) -> dict:
     at 45,823 steps with a copy of the committed PINc checkpoint (its
     sidecar turns the position mask on), ``--pinc-psi-ssa`` and
     ``--json-out``, the Fossen row on K2 Euler; T5 (``tank_rk4``) the same
-    with K2 RK4; T3 and T4 at 20,000 steps (K4, K5).  Checked: the Fossen
+    with K2 RK4; T3 and T4 at 20,000 steps (K4, K5); each with its Fossen
+    fit (T6 with stderrs, gains and current) and fitted row, checked by
+    :func:`fitted_row` and :func:`fit_checks`.  Checked: the Fossen
     rows against the plain versions on the card, the DI and PINc RMSEs
     against the same port functions in float64 on the host CPU (the card's
     gains and weights), the committed PINc's forward against float64, the
     JSON record.  Then PINc trains from scratch on T6's training split at
     the flagship batch for a few epochs: seconds an epoch, finite losses,
     the device-busy share of its minibatch steps and of the PINc endpoint,
-    and the saved checkpoint reloading with the same bits."""
+    and the saved checkpoint reloading with the same bits.  Returns the
+    JSON summary and the context of phase 6's ``mesh=`` check."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -658,13 +984,15 @@ def learned_apps(dev, card, drive) -> dict:
         record = tmp / "t6.json"
         t0 = time.perf_counter()
         counts = {}
-        t6 = drive("T6 app (tank_full_comparison.main)", ("window_sq",),
+        t6 = drive("T6 app (tank_full_comparison.main, the Fossen fit with stderrs, gains and "
+                   "current)", ("window_sq",),
                    lambda: tank_full_comparison.main(
-                       LEARNED_ARGS + ["--pinc-ckpt", str(ckpt), "--json-out", str(record)],
+                       LEARNED_ARGS + T6_FIT + ["--pinc-ckpt", str(ckpt), "--json-out", str(record)],
                        device=dev), into=counts)
         t6_s = time.perf_counter() - t0
-        if counts["window_sq"] != 2 * len(H_APP):
-            fail(f"T6 app: {counts['window_sq']} K2 launches, not one a call of the Fossen row")
+        if counts["window_sq"] != 4 * len(H_APP):
+            fail(f"T6 app: {counts['window_sq']} K2 launches, not one a call of the Fossen rows "
+                 f"(nominal and fitted)")
         net = t6["net"]
         if not (net.position_invariant and net.hidden == (64, 64, 64, 64)
                 and net.norm_mu is not None and np.any(net.norm_mu != 0)):
@@ -680,6 +1008,29 @@ def learned_apps(dev, card, drive) -> dict:
             "T6", t6, lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "euler"),
             f32(t6["test"].X), f32(t6["test"].U))}
         di_rel = {"T6": di_vs_float64("T6", t6, "euler12")}
+        # the fit: its row against the plain version and below the nominal one,
+        # its stderrs inf exactly at the zero-nominal scales, its rollout
+        res6 = t6["sysid"]
+        fits = {"T6": fitted_row("T6", t6, lambda X, U, H: ce.window_sq_plain(
+            res6.params, res6.cfg, lag, X, U, DT, H, "euler"), f32(t6["test"].X),
+            f32(t6["test"].U), "Fossen (BlueROV2)", card)}
+        for H in H_APP[1:]:
+            fitted, nominal = t6["rmse"]["Fossen (fitted)"][H], t6["rmse"]["Fossen (BlueROV2)"][H]
+            print(f"T6 H={H}: Fossen (fitted) {fitted:.6f} against the nominal {nominal:.6f}")
+            if not fitted < nominal:
+                fail(f"T6 H={H}: the fitted row {fitted} is not below the nominal {nominal}")
+        se = {k: v.cpu().numpy() for k, v in res6.stderr.items()}
+        print(f"T6 stderrs: s {np.round(se['s'], 6).tolist()}, gains {np.round(se['g'], 6).tolist()},"
+              f" current {np.round(se['c'], 6).tolist()}; fitted current {res6.current.tolist()}")
+        if (tuple(np.flatnonzero(np.isinf(se["s"]))) != ZERO_NOMINAL
+                or not all(np.isfinite(np.delete(se["s"], ZERO_NOMINAL)).all()
+                           and np.isfinite(se[k]).all() for k in ("g", "c"))):
+            fail(f"T6 stderrs: inf at {np.flatnonzero(~np.isfinite(se['s']))}, not exactly at "
+                 f"{ZERO_NOMINAL}")
+        fits["T6"].update(stderr={k: v.tolist() for k, v in se.items()},
+                          rollout_s=t6["rollout_s"]["Fossen (fitted)"])
+        if not np.isfinite(t6["trajs"]["FOSSEN (fitted)"]).all():
+            fail("T6: the fitted open-loop rollout is not finite")
 
         # PINc: the card's RMSEs and the committed net's forward against float64 on the host
         t0 = time.perf_counter()
@@ -714,36 +1065,49 @@ def learned_apps(dev, card, drive) -> dict:
 
         # T5: the same recording and checkpoint under RK4 (K2's RK4 form)
         counts5 = {}
-        t5 = drive("T5 app (tank_rk4.main)", ("window_sq",),
-                   lambda: tank_rk4.main(LEARNED_ARGS + ["--pinc-ckpt", str(ckpt)], device=dev),
-                   into=counts5)
-        if counts5["window_sq"] != 2 * len(H_APP):
-            fail(f"T5 app: {counts5['window_sq']} K2 launches, not one a call of the Fossen row")
+        t5 = drive("T5 app (tank_rk4.main --fossen-fit)", ("window_sq",),
+                   lambda: tank_rk4.main(LEARNED_ARGS + T5_FIT + ["--pinc-ckpt", str(ckpt)],
+                                         device=dev), into=counts5)
+        if counts5["window_sq"] != 4 * len(H_APP):
+            fail(f"T5 app: {counts5['window_sq']} K2 launches, not one a call of the Fossen rows")
         fossen_rel["T5"] = fossen_vs_plain(
             "T5", t5, lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "rk4"),
             f32(t5["test"].X), f32(t5["test"].U))
+        res5 = t5["sysid"]
+        fits["T5"] = fitted_row("T5", t5, lambda X, U, H: ce.window_sq_plain(
+            res5.params, res5.cfg, lag, X, U, DT, H, "rk4"), f32(t5["test"].X),
+            f32(t5["test"].U), "Fossen (BlueROV2)", card)
         di_rel["T5"] = di_vs_float64("T5", t5, "euler12_rk4")
 
         # T3 and T4: Koopman, Fossen (K4 / K5) and DI on the wrench recording
-        runs34 = {}
-        for app, main, kname, plain, variant in (
-                ("T3", tank_wrench_comp.main, "window_sq_wrench",
-                 lambda X, U, H: ce.window_sq_wrench_plain(p, X, U, DT, H, "euler"), "euler12"),
-                ("T4", tank_wrench_quat.main, "window_sq_quat",
-                 lambda X, U, H: cq.window_sq_quat_plain(p, X, U, DT, H, "euler"), "quat13")):
+        runs34, sq_plain = {}, {"T3": ce.window_sq_wrench_plain, "T4": cq.window_sq_quat_plain}
+        for app, main, kname, fit_args, variant in (
+                ("T3", tank_wrench_comp.main, "window_sq_wrench", T3_FIT, "euler12"),
+                ("T4", tank_wrench_quat.main, "window_sq_quat", T4_FIT, "quat13")):
+            plain = lambda X, U, H, app=app: sq_plain[app](p, X, U, DT, H, "euler")  # noqa: E731
             c = {}
             t0 = time.perf_counter()
-            r = drive(f"{app} app ({main.__module__.rsplit('.', 1)[1]}.main)", (kname,),
-                      lambda main=main: main(T34_ARGS, device=dev), into=c)
+            r = drive(f"{app} app ({main.__module__.rsplit('.', 1)[1]}.main "
+                      f"{' '.join(fit_args)})", (kname,),
+                      lambda main=main, fit_args=fit_args: main(T34_ARGS + fit_args, device=dev),
+                      into=c)
             secs = time.perf_counter() - t0
-            if c[kname] != 2 * len(H_APP):
-                fail(f"{app} app: {c[kname]} {kname} launches, not one a call of the Fossen row")
+            if c[kname] != 4 * len(H_APP):
+                fail(f"{app} app: {c[kname]} {kname} launches, not one a call of the Fossen rows")
+            fits[app] = fitted_row(app, r, lambda X, U, H, app=app, res=r["sysid"]: sq_plain[app](
+                res.params, X, U, DT, H, "euler"), f32(r["test"].X), f32(r["test"].U),
+                name_of[app], card)
+            runs34[app + "_run"] = r
             for name, row in r["rmse"].items():
                 if not all(np.isfinite(v) for v in row.values()):
                     fail(f"{app} {name}: an RMSE is not finite: {row}")
             fossen_rel[app] = fossen_vs_plain(app, r, plain, f32(r["test"].X), f32(r["test"].U))
             di_rel[app] = di_vs_float64(app, r, variant)
             runs34[app] = app_entry(r, secs, c[kname])
+
+        fit_summary, fit_ctx = fit_checks(dev, card, t6, t5, runs34.pop("T3_run"),
+                                          runs34.pop("T4_run"))
+        fits.update(fit_summary)
 
         # PINc training from scratch at the flagship batch on T6's training split
         X_tr, U_tr = f32(t6["train"].X), f32(t6["train"].U)
@@ -791,12 +1155,13 @@ def learned_apps(dev, card, drive) -> dict:
     out.update(runs34)
     out["rel_vs_float64"] = {"pinc": pinc_rel, "di": di_rel}
     out["fossen_rel_vs_plain"] = fossen_rel
+    out["sysid"] = fits
     out["training"] = dict(epochs=TRAIN_EPOCHS, minibatches=n_batches, seconds=train_s,
                            s_an_epoch=train_s / TRAIN_EPOCHS, losses=hist,
                            step_busy=step_busy, reload_same_bits=same)
     print(f"T6: {t6_s:.1f} s in all (recording {t6['data_s']:.2f} s); T5 data {t5['data_s']:.2f} "
           f"s; T3 {runs34['T3']['seconds']:.1f} s, T4 {runs34['T4']['seconds']:.1f} s [{card}]")
-    return out
+    return out, fit_ctx
 
 
 def main() -> None:
@@ -815,7 +1180,7 @@ def main() -> None:
         DIV_OPS, QUAT_BUDGET, ROW_BUDGET, TRIG_OPS, actuation_ops, quat_ops, row_ops)
     from bluerov2_dynamics_tpu_torch.eval.timing import (
         cuda_event_time, device_ms, host_ms, profile_calls, time_fn)
-    from bluerov2_dynamics_tpu_torch.models import fossen
+    from bluerov2_dynamics_tpu_torch.models import fossen, sysid
     from bluerov2_dynamics_tpu_torch.models.params import (
         fossen_params, lag_params, thruster_config)
     from bluerov2_dynamics_tpu_torch.ops import _build
@@ -878,8 +1243,10 @@ def main() -> None:
 
     # the Koopman apps T2 and T1 at full size
     apps = koopman_apps(dev, card, drive)
-    # the learned-model apps T6, T5, T3 and T4 and PINc training
-    learned = learned_apps(dev, card, drive)
+    # the learned-model apps T6, T5, T3 and T4 with their Fossen fits, and PINc training
+    learned, fit_ctx = learned_apps(dev, card, drive)
+    # the physics demo
+    demos = demo_runs(dev, card)
 
     # the recording: the port's own simulator on the card, plus sensor noise
     t0 = time.perf_counter()
@@ -1367,6 +1734,25 @@ def main() -> None:
         name, (_, _, _, sq_fn, _, X, Ui) = next(iter(k7.items()))
         busy = device_busy_share(lambda: sharded.shardmap_window_rmse(mesh1, sq_fn, X, Ui, H))
         composition[name]["device_busy_share"] = busy
+        # the Fossen fit with mesh= on the one-rank group (eager; the loss and
+        # gradients all-reduced) against mesh=None, at T6's shape
+        t0 = time.perf_counter()
+        meshed = sysid.fit_thruster(fit_ctx["X_tr"], fit_ctx["U_tr"], DT, steps=FIT_CHECK_STEPS,
+                                    mesh=mesh1, **fit_ctx["kw"])
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        one = fit_ctx["eager"]
+        rel_l = float(((meshed.losses - one.losses).abs() / one.losses.abs()).max())
+        d_s = (meshed.log_scales - one.log_scales).abs()
+        rel_s = float((d_s / (one.log_scales.abs() + 1e-5 / MESH_RTOL["scales"])).max())
+        print(f"Fossen fit with mesh= at world 1 ({K7_BACKEND}) against mesh=None over "
+              f"{FIT_CHECK_STEPS} steps: losses rel {rel_l:.3e} (rtol {MESH_RTOL['losses']:g}), "
+              f"log-scales max|d| {float(d_s.max()):.3e} (rtol {MESH_RTOL['scales']:g}, atol 1e-5); "
+              f"{mesh_s:.3f} s [{card}]")
+        if rel_l > MESH_RTOL["losses"] or not torch.allclose(
+                meshed.log_scales, one.log_scales, rtol=MESH_RTOL["scales"], atol=1e-5):
+            fail("the Fossen fit with mesh= at world 1 differs from mesh=None")
+        learned["sysid"]["mesh_world1"] = dict(loss_rel=rel_l, scale_rel=rel_s, seconds=mesh_s)
     finally:
         dist.destroy_process_group()
 
@@ -1622,6 +2008,7 @@ def main() -> None:
                                               "fma_tree_share_of_peak": tree / FP32_PEAK}))
     print("koopman apps: " + json.dumps(apps, default=float))
     print("learned apps: " + json.dumps(learned, default=float))
+    print("demo: " + json.dumps(demos, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -55,12 +55,14 @@ def recording(tmp_path_factory):
 
 def test_tank_koopman_matches_jax_on_one_csv_and_one_model(recording, tmp_path, capsys):
     model = tmp_path / "koopman.npz"
-    common = ["--csv", str(recording), "--physics-baseline", "--no-media", "--n-rbfs", "16"]
+    common = ["--csv", str(recording), "--physics-baseline", "--no-media", "--n-rbfs", "16",
+              "--fossen-fit", "--fossen-fit-steps", "5"]
     want = japp.main(common + ["--save-model", str(model)])
     want_table = _table(capsys.readouterr().out)
     got = tapp.main(common + ["--load-model", str(model)], device="cpu")
     got_table = _table(capsys.readouterr().out)
-    assert list(got_table) == list(want_table) == ["Koopman", "Fossen (BlueROV2)"]
+    assert list(got_table) == list(want_table) == ["Koopman", "Fossen (BlueROV2)",
+                                                   "Fossen (fitted)"]
     for name, row in want_table.items():
         np.testing.assert_allclose(got_table[name], row, rtol=1e-4, err_msg=name)
         np.testing.assert_allclose([got["rmse"][name][H] for H in (1, 10, 100)], row,
@@ -91,7 +93,13 @@ def test_sim_koopman_runs_small(capsys):
 @pytest.mark.parametrize("app", [tapp, tsim])
 def test_media_and_unported_flags_fail_with_their_roadmap_item(app, capsys):
     with pytest.raises(SystemExit, match="item 16"):
-        app.main(["--synthetic", "--steps", "50"], device="cpu")
+        app.main(["--synthetic", "--steps", "50"] + (["--fossen-fit"] if app is tapp else []),
+                 device="cpu")
+    # T2 takes the Fossen fit's flags and checks their values; T1 has none,
+    # as in the JAX package
+    bad = ["--fossen-fit-delay", "2"] if app is tapp else ["--fossen-fit"]
     with pytest.raises(SystemExit):
-        app.main(["--synthetic", "--steps", "50", "--no-media", "--fossen-fit"], device="cpu")
-    assert "unrecognized arguments: --fossen-fit" in capsys.readouterr().err
+        app.main(["--synthetic", "--steps", "50", "--no-media", *bad], device="cpu")
+    err = capsys.readouterr().err
+    assert ("argument --fossen-fit-delay: invalid choice" if app is tapp
+            else "unrecognized arguments: --fossen-fit") in err

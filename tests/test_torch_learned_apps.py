@@ -50,6 +50,7 @@ from bluerov2_dynamics_tpu_torch.apps import tank_wrench_quat as tt4  # noqa: E4
 N_ROWS = 600
 RTOL = 1e-4
 COMMON = ["--no-media", "--n-rbfs", "16", "--open-loop-steps", "60"]
+FIT = ["--fossen-fit", "--fossen-fit-steps", "5"]
 PINC = ["--pinc-epochs", "3", "--pinc-hidden", "16", "16", "--pinc-psi-ssa"]
 
 
@@ -127,13 +128,14 @@ def t6_jax(csvs):
     """The JAX T6 app: trains the small PINc position-invariant and saves
     it (and its sidecar); then the JAX T5 app on that checkpoint."""
     ckpt = csvs / "pinc.msgpack"
-    args = ["--csv", str(csvs / "thr.csv"), *COMMON, *PINC, "--pinc-ckpt", str(ckpt)]
+    args = ["--csv", str(csvs / "thr.csv"), *COMMON, *PINC, *FIT, "--pinc-ckpt", str(ckpt)]
     t6 = _run(jt6.main, args + ["--pinc-position-invariant"])
     t5 = _run(jt5.main, args + ["--pinc-position-invariant"])
     return dict(args=args, ckpt=ckpt, t6=t6, t5=t5)
 
 
-T6_ROWS = ["Koopman", "Fossen (BlueROV2)", "Double Integrator", "PINc (ResDNN)", "PINc (ssa psi)"]
+T6_ROWS = ["Koopman", "Fossen (BlueROV2)", "Double Integrator", "PINc (ResDNN)", "PINc (ssa psi)",
+           "Fossen (fitted)"]
 
 
 def test_t6_matches_jax_with_the_sidecar_overriding_the_flag(t6_jax, tmp_path):
@@ -158,7 +160,9 @@ def test_t6_matches_jax_with_the_sidecar_overriding_the_flag(t6_jax, tmp_path):
     rec = json.loads(json_out.read_text())
     assert rec["backend"] == "cpu" and rec["fit_seconds_warm"]["pinc"] == 0.0
     assert set(rec["rmse"]) == set(T6_ROWS)
-    assert list(got["rollout_s"]) == T6_ROWS[:4] and "[timings] Open-loop rollout time" in text
+    assert list(got["rollout_s"]) == T6_ROWS[:4] + ["Fossen (fitted)"]
+    assert "[timings] Open-loop rollout time" in text
+    assert got["sysid"].losses.shape == (5,) and "FOSSEN (fitted)" in jout["trajs"]
 
 
 def test_t5_rk4_matches_jax(t6_jax):
@@ -175,19 +179,22 @@ def test_t5_rk4_matches_jax(t6_jax):
 
 
 def test_t3_matches_jax(csvs):
-    args = ["--csv", str(csvs / "wrench.csv"), *COMMON]
+    args = ["--csv", str(csvs / "wrench.csv"), *COMMON, *FIT, "--fossen-fit-current"]
     jout, jtext, jmodel = _run(jt3.main, args)
     got, text = _port(tt3.main, args, jmodel)
-    _check_tables(text, jtext, ["Koopman", "Fossen (wrench)", "Double Integrator"])
+    _check_tables(text, jtext, ["Koopman", "Fossen (wrench)", "Double Integrator",
+                                "Fossen (fitted)"])
+    assert got["sysid"].current.shape == (3,)
     for key in ("koopman", "fossen", "di"):
         np.testing.assert_allclose(got[key], np.asarray(jout[key]), rtol=0, atol=1e-4, err_msg=key)
 
 
 def test_t4_matches_jax(csvs):
-    args = ["--csv", str(csvs / "wrench.csv"), *COMMON]
+    args = ["--csv", str(csvs / "wrench.csv"), *COMMON, *FIT]
     jout, jtext, jmodel = _run(jt4.main, args)
     got, text = _port(tt4.main, args, jmodel)
-    _check_tables(text, jtext, ["Koopman (quat)", "Fossen (quat)", "DI (quat)"])
+    _check_tables(text, jtext, ["Koopman (quat)", "Fossen (quat)", "DI (quat)",
+                                "Fossen (fitted)"])
     for key in ("koopman", "fossen", "di"):
         np.testing.assert_allclose(got[key], np.asarray(jout[key]), rtol=0, atol=1e-4, err_msg=key)
 
@@ -207,8 +214,8 @@ def test_t3_t4_synthetic_branches_and_guards(tmp_path):
         tt6.main(small + ["--pinc-ckpt", str(tmp_path / "new.msgpack"), "--pinc-dp", "2"],
                  device="cpu")
     assert not (tmp_path / "new.msgpack").exists()
-    with pytest.raises(SystemExit):
-        tt6.main(small + ["--fossen-fit"], device="cpu")          # sysid: ROADMAP item 11
+    with pytest.raises(SystemExit):              # the fit's input delay is 0 or 1
+        tt6.main(small + ["--fossen-fit", "--fossen-fit-delay", "2"], device="cpu")
 
 
 def test_json_sanitize_and_rollout_table(capsys):

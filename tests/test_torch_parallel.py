@@ -18,7 +18,12 @@ parameters and draws): the loss history at rtol 1e-5 against
 ``pinc.train`` and against the port's single-device run (measured 8.2e-8
 for both), the parameters at rtol 1e-5, atol 1e-6 against the
 single-device run (measured 6.0e-8 abs): the gradients' mean over ranks
-reorders float32 sums.
+reorders float32 sums.  The Fossen identification (float32, 6 Adam
+steps) over 4 ranks and on a one-rank group against the single-device
+fit at the JAX test's tolerances (``tests/test_sysid.py``): losses at rtol
+2e-4, log-scales, gains and current at rtol 1e-3 and atol 1e-5, and the
+Laplace stderrs with the same ``inf`` entries and the finite ones at rtol
+1e-3.
 """
 
 import os
@@ -497,3 +502,36 @@ def test_misaligned_view_raises_on_card(cuda, mesh1):
     U = torch.zeros(41 * 8, device=cuda)[1:1 + 40 * 8].view(40, 8)
     with pytest.raises(ValueError, match="aligned"):
         sharded.shardmap_endpoint_rmse_cuda(mesh1, p, cfg, lag, X, U, DT, 10)
+
+
+# --- the Fossen identification, data-parallel -----------------------------------
+
+def _check_sysid(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        g = got[key]
+        if key.endswith(".losses"):
+            np.testing.assert_allclose(g, w, rtol=2e-4, err_msg=key)
+        elif ".stderr." in key:
+            np.testing.assert_array_equal(np.isinf(g), np.isinf(w), err_msg=key)
+            np.testing.assert_allclose(g[np.isfinite(w)], w[np.isfinite(w)], rtol=1e-3,
+                                       err_msg=key)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-5, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def sysid_single(data):
+    d = {k: torch.from_numpy(v) for k, v in data.items()}
+    return trc.sysid_fits(d)
+
+
+def test_sysid_fit_on_four_ranks_matches_one_device(four_ranks, sysid_single):
+    assert np.isinf(sysid_single["thruster.stderr.s"][[12, 14, 16]]).all()
+    for r in four_ranks:
+        _check_sysid(r["sysid"], sysid_single)
+
+
+def test_world1_sysid_mesh_fit_matches_one_device(mesh1, data, sysid_single):
+    d = {k: torch.from_numpy(v) for k, v in data.items()}
+    _check_sysid(trc.sysid_fits(d, mesh1), sysid_single)

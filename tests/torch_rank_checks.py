@@ -27,6 +27,10 @@ PINC_INPUTS = "TORCH_RANK_CHECKS_PINC_INPUTS"
 PINC_HIDDEN = (16, 16)
 PINC_TRAIN = dict(epochs=3, batch=64, rollout_steps=5, rollout_windows=8, normalize=True,
                   position_invariant=True, lr_schedule="cosine")
+# the Fossen identification (tests/test_sysid.py::test_fit_mesh_invariance):
+# 404 rows, horizon 3, 6 Adam steps, input delay 1
+SYSID_N = 404
+SYSID_FIT = dict(horizon=3, steps=6, lr=0.05, input_delay=1)
 
 
 def inputs(seed: int = 0) -> dict:
@@ -58,7 +62,42 @@ def inputs(seed: int = 0) -> dict:
     d["koop_A"] = 0.9 * np.eye(n_lift) + 0.02 * rng.normal(size=(n_lift, n_lift))
     d["koop_B"] = 0.1 * rng.normal(size=(n_lift, 2))
     d["koop_X_prior"], d["koop_U_prior"] = rng.normal(size=(9, 4)), rng.normal(size=(9, 2))
+    # the sysid fits: a slowly drifting euler12 record, its quat13 form
+    # and smooth thruster commands and wrenches
+    rng = np.random.default_rng(seed + 2)
+    d["sysid_X"] = np.cumsum(rng.normal(size=(SYSID_N, 12)) * 0.01, axis=0)
+    d["sysid_U"] = np.clip(np.cumsum(rng.normal(size=(SYSID_N, 8)) * 0.05, axis=0), -1, 1)
+    d["sysid_TAU"] = np.cumsum(rng.normal(size=(SYSID_N, 6)) * 0.2, axis=0)
+    X13 = np.concatenate([d["sysid_X"][:, :3], np.ones((SYSID_N, 1)),
+                          0.05 * d["sysid_X"][:, 3:6], d["sysid_X"][:, 6:]], axis=1)
+    d["sysid_X13"] = X13
     return d
+
+
+def sysid_fits(d, mesh=None) -> dict:
+    """The thruster fit (gains, current, standard errors) and the quat13
+    wrench fit on ``d``'s sysid record, with ``mesh`` or on one device;
+    host arrays keyed ``"<fit>.<field>"``."""
+    from bluerov2_dynamics_tpu_torch.models import sysid
+
+    out = {}
+    fits = {
+        "thruster": lambda: sysid.fit_thruster(
+            d["sysid_X"], d["sysid_U"], DT, fit_gains=True, fit_current=True,
+            compute_stderr=True, mesh=mesh, device="cpu", **SYSID_FIT),
+        "quat13": lambda: sysid.fit_wrench(
+            d["sysid_X13"], d["sysid_TAU"], DT, state="quat13", mesh=mesh, device="cpu",
+            **SYSID_FIT),
+    }
+    for name, fit in fits.items():
+        res = fit()
+        for field in ("losses", "log_scales", "log_gains", "current"):
+            v = getattr(res, field)
+            if v is not None:
+                out[f"{name}.{field}"] = v.numpy()
+        for k, v in (res.stderr or {}).items():
+            out[f"{name}.stderr.{k}"] = v.numpy()
+    return out
 
 
 def koopman_model(d):
@@ -223,6 +262,7 @@ def all_checks(rank: int, world: int) -> dict:
     out["mesh_bad_shape"] = _error(lambda: pmesh.make_mesh((3,), ("data",), device_type="cpu"))
     out.update(koopman_checks(d, mesh, mesh2))
     out.update(pinc_checks(mesh))
+    out["sysid"] = sysid_fits(d, mesh)
     return out
 
 
