@@ -220,15 +220,22 @@ def _generate_sim(args, device=None):
     )
 
 
+def _generated(args, device):
+    """The synthetic dataset the args select, generated on ``device``, and
+    its noise-free states (host, float64)."""
+    t0 = time.perf_counter()
+    sim = _generate_sim(args, device)
+    host = lambda a: a.double().cpu().numpy()  # noqa: E731
+    ok(f"Generated {args.steps} steps in {time.perf_counter() - t0:.3f} s")
+    return (csv_loader.Dataset(X=host(sim.X), U=host(sim.U), t=np.arange(args.steps) * args.dt,
+                               dt=args.dt), host(sim.X_true))
+
+
 def load_or_generate(args, loader: Callable = csv_loader.load_thruster_dataset, device=None):
     """Load the CSV named by --csv (or found under it), or generate the
     synthetic dataset on ``device``; returns a host float64 ``Dataset``."""
     if args.synthetic or args.csv is None:
-        t0 = time.perf_counter()
-        sim = _generate_sim(args, device)
-        X, U = sim.X.double().cpu().numpy(), sim.U.double().cpu().numpy()
-        ok(f"Generated {args.steps} steps in {time.perf_counter() - t0:.3f} s")
-        return csv_loader.Dataset(X=X, U=U, t=np.arange(args.steps) * args.dt, dt=args.dt)
+        return _generated(args, device)[0]
     from pathlib import Path
 
     csv_path = Path(args.csv)
@@ -236,6 +243,20 @@ def load_or_generate(args, loader: Callable = csv_loader.load_thruster_dataset, 
         csv_path = csv_loader.find_latest_csv(
             csv_path, getattr(args, "csv_name", "koopman_dataset_50Hz.csv"))
     return loader(csv_path)
+
+
+def load_or_generate_with_truth(args, loader: Callable = csv_loader.load_thruster_dataset,
+                               device=None):
+    """:func:`load_or_generate` plus what only the estimation app needs:
+    the generator's noise-free states (``None`` for CSV data) and the
+    dataset's input delay.  Generated datasets record each command next to
+    the state it produced (the transition ``X[k] -> X[k+1]`` is driven by
+    ``U[k+1]``, delay 1; see ``sysid.fit_thruster``); real CSVs pair
+    ``U[k]`` with the state it is about to act on (delay 0).  Returns
+    ``(Dataset, X_true or None, input_delay)``, host float64."""
+    if args.synthetic or args.csv is None:
+        return (*_generated(args, device), 1)
+    return load_or_generate(args, loader, device), None, 0
 
 
 def synthetic_wrench_dataset(args, device=None) -> csv_loader.Dataset:

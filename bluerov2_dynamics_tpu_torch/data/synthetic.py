@@ -32,10 +32,10 @@ Each generator is split in two:
 **The step loop.**  On the CPU it is a Python loop over the steps (the
 plain version).  On a CUDA device a fixed chunk of :data:`GRAPH_CHUNK`
 steps of the closed-loop body (commands, the depth and attitude hold, the
-thruster step, the row writes into static buffers) is captured once as a
-``torch.cuda.CUDAGraph`` and replayed over the recording; the body has
-no host synchronisation.  A capture that fails raises: there is no quiet
-return to the eager loop.
+thruster step) is captured once as a ``torch.cuda.CUDAGraph`` and
+replayed over the recording (``ops/scan.py``, the step loop the filters
+share); the body has no host synchronisation.  A capture that fails
+raises: there is no quiet return to the eager loop.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
     lag_params,
     thruster_config,
 )
+from bluerov2_dynamics_tpu_torch.ops.scan import scan
 
 GRAPH_CHUNK = 256   # steps captured in one CUDA graph and replayed
 
@@ -82,62 +83,11 @@ def _uniform(gen, n, jitter, dtype):
     return (1.0 - jitter) + (2.0 * jitter) * torch.rand(n, generator=gen, dtype=dtype)
 
 
-# ---------------------------------------------------------------------------
-# The step loop: eager on the CPU, CUDA graphs on the card
-# ---------------------------------------------------------------------------
-
-def _scan_eager(f: Callable, carry, xs):
-    ys = []
-    for t in range(xs[0].shape[0]):
-        carry, y = f(carry, tuple(x[t] for x in xs))
-        ys.append(y)
-    return tuple(torch.stack([y[i] for y in ys]) for i in range(len(ys[0])))
-
-
-def _scan_graph(f: Callable, carry, xs, chunk: int = GRAPH_CHUNK):
-    """:func:`_scan_eager` as replays of one CUDA graph of ``chunk`` steps.
-    The inputs are zero-padded to whole chunks; the padded steps' outputs
-    are dropped."""
-    n = xs[0].shape[0]
-    n_chunks = -(-n // chunk)
-    padded = [torch.cat([x, x.new_zeros((n_chunks * chunk - n, *x.shape[1:]))]) for x in xs]
-    static_x = [x[:chunk].clone() for x in padded]
-    static_carry = [c.clone() for c in carry]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):          # warm-up off the capture, as CUDA graphs need
-        c = tuple(t.clone() for t in carry)
-        for i in range(3):
-            c, y = f(c, tuple(x[i] for x in static_x))
-    torch.cuda.current_stream().wait_stream(side)
-    static_y = [torch.empty((chunk, *v.shape), dtype=v.dtype, device=v.device) for v in y]
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        c = tuple(static_carry)
-        for i in range(chunk):
-            c, y = f(c, tuple(x[i] for x in static_x))
-            for buf, v in zip(static_y, y):
-                buf[i].copy_(v)
-        for buf, v in zip(static_carry, c):
-            buf.copy_(v)
-    outs = [torch.empty((n_chunks * chunk, *b.shape[1:]), dtype=b.dtype, device=b.device)
-            for b in static_y]
-    for k in range(n_chunks):
-        rows = slice(k * chunk, (k + 1) * chunk)
-        for sx, x in zip(static_x, padded):
-            sx.copy_(x[rows])
-        graph.replay()
-        for o, b in zip(outs, static_y):
-            o[rows].copy_(b)
-    return tuple(o[:n] for o in outs)
-
-
 def _scan(f: Callable, carry, xs, graph: bool):
     """``ys`` of ``f(carry, x_t) -> (carry, y_t)`` over the rows of ``xs``:
-    CUDA graphs for CUDA inputs when ``graph``, else the eager loop."""
-    if graph and xs[0].is_cuda:
-        return _scan_graph(f, carry, xs)
-    return _scan_eager(f, carry, xs)
+    CUDA graphs of :data:`GRAPH_CHUNK` steps for CUDA inputs when
+    ``graph``, else the eager loop (:func:`~bluerov2_dynamics_tpu_torch.ops.scan.scan`)."""
+    return scan(f, carry, xs, graph=None if graph else False, chunk=GRAPH_CHUNK)
 
 
 # ---------------------------------------------------------------------------

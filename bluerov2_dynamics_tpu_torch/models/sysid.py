@@ -28,6 +28,7 @@ in-place op, no read-back and no branch on a tensor's value.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -228,12 +229,19 @@ def adam_update(theta: list, grads: list, mu: list, nu: list, count, lr: float) 
 
 
 def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
-              graph: bool = False, reduce: Optional[Callable] = None):
+              graph: bool = False, reduce: Optional[Callable] = None,
+              warmup: int = GRAPH_WARMUP, stats: Optional[dict] = None):
     """Full-batch Adam over ``steps`` iterations: returns ``(theta, losses
     (steps,))``, the loss of each iteration at the parameters it starts
     from.  ``graph``: capture one iteration as a CUDA graph and replay it
     (a failed capture raises); otherwise the eager loop.  ``reduce(flat)``
-    sums the loss and the gradients over the ranks of a mesh."""
+    sums the loss and the gradients over the ranks of a mesh.  ``warmup``
+    iterations run on a side stream before the capture (their state
+    changes are undone).  A ``stats`` dict receives, on the graph path, the
+    host seconds of the warm-up and capture (``"capture_s"``) and the
+    device milliseconds an iteration replayed (``"replay_ms"``, CUDA events
+    around the replays); with ``stats["keep"]`` set, the captured
+    iteration's replay (``"replay"``), to trace it."""
     names = sorted(theta0)
     theta = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}
     leaves = [theta[k] for k in names]
@@ -262,12 +270,13 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
         elif steps > 0:
             if reduce is not None:
                 raise ValueError("the CUDA-graph fit runs on one device; a mesh fit runs eagerly")
+            t_start = time.perf_counter()
             state = leaves + mu + nu + [count]
             saved = [t.detach().clone() for t in state]
             side = torch.cuda.Stream(device=first.device)
             side.wait_stream(torch.cuda.current_stream(first.device))
             with torch.cuda.stream(side):
-                for _ in range(GRAPH_WARMUP):
+                for _ in range(warmup):
                     iteration()
             torch.cuda.current_stream(first.device).wait_stream(side)
             with torch.no_grad():
@@ -276,10 +285,20 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
             g = torch.cuda.CUDAGraph()
             with torch.cuda.graph(g):
                 static_loss = iteration()
+            t_captured = time.perf_counter()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
             for i in range(steps):
                 g.replay()
                 hist[i].copy_(static_loss)
+            events[1].record()
             torch.cuda.current_stream(first.device).synchronize()
+            if stats is not None:
+                stats["capture_s"] = t_captured - t_start
+                stats["replay_ms"] = events[0].elapsed_time(events[1]) / steps
+                if stats.pop("keep", False):
+                    # the replay holds the graph and the memory it writes alive
+                    stats["replay"] = lambda g=g, held=(state, static_loss): g.replay()
             del g
     return {k: v.detach() for k, v in theta.items()}, hist
 

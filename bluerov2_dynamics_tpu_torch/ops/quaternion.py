@@ -21,8 +21,9 @@ def _components(q):
 def quat_normalize(q, eps=_NORM_EPS):
     """Normalise quaternions; a norm below ``eps`` gives the identity."""
     n = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
-    identity = torch.zeros_like(q)
-    identity[..., 0] = 1.0
+    # built without an indexed write: under vmap that write copies a host
+    # scalar, which a CUDA graph cannot capture
+    identity = torch.cat([torch.ones_like(q[..., :1]), torch.zeros_like(q[..., 1:])], dim=-1)
     small = n < eps
     return torch.where(small, identity, q / torch.where(small, torch.ones_like(n), n))
 

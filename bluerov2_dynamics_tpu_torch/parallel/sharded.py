@@ -27,8 +27,12 @@ The sharded Koopman functions (:func:`sharded_koopman_multistep_rmse`,
 :func:`sharded_koopman_fit`, :func:`sharded_streaming_stats`) are the JAX
 package's, with the collectives XLA would insert written out: an
 all-gather of the lifted state's column blocks, and all-reduces of Gram,
-right-hand side and squared-error sums.  The filter banks come with the
-estimation module.
+right-hand side and squared-error sums.
+
+The filter banks (:func:`sharded_ekf_bank`, :func:`sharded_pf_bank`) are
+the JAX package's GSPMD-sharded ``vmap`` of a filter: each rank filters
+its contiguous block of trajectories (blocks as ``torch.tensor_split``
+makes them) and an all-gather assembles the bank's result on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +49,13 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_eval import (
     make_endpoint_sq_cuda_wrench,
 )
 from bluerov2_dynamics_tpu_torch.models import koopman
+from bluerov2_dynamics_tpu_torch.models.estimation import (
+    FilterResult,
+    ParticleFilterResult,
+    _check_inputs,
+    ekf,
+    particle_filter_bank,
+)
 from bluerov2_dynamics_tpu_torch.ops.cuda_quat import make_endpoint_sq_cuda_quat
 from bluerov2_dynamics_tpu_torch.ops.kmeans import kmeans
 from bluerov2_dynamics_tpu_torch.ops.lifting import rbf_lift
@@ -353,3 +364,53 @@ def sharded_streaming_stats(mesh: DeviceMesh, stats0, X, U, chunk: int = 1024,
         prev_u=U[-1],
         prev_valid=one,
     )
+
+
+# --- filter banks -----------------------------------------------------------------
+
+def _gather_rows(block, sizes, group):
+    """The whole ``(sum(sizes), ...)`` tensor from each rank's row block
+    (``sizes[i]`` rows on rank i of ``group``), padded for the all-gather
+    and trimmed after it."""
+    padded = block.new_zeros((max(sizes), *block.shape[1:]))
+    padded[:block.shape[0]] = block
+    parts = [torch.empty_like(padded) for _ in sizes]
+    dist.all_gather(parts, padded.contiguous(), group=group)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+
+def _bank_block(mesh: DeviceMesh, data_axis: str, U, Y):
+    _check_inputs(U, Y, 1)
+    group, size, index = axis(mesh, data_axis)
+    B = Y.shape[0]
+    sizes = [hi - lo for lo, hi in (_block(B, size, i) for i in range(size))]
+    return group, sizes, _block(B, size, index)
+
+
+def sharded_ekf_bank(mesh: DeviceMesh, step: Callable, h: Callable, Q, R, m0, P0, U, Y,
+                     data_axis: str = "data", residual: Callable = None):
+    """Bank of independent EKFs, one per trajectory, sharded over
+    ``data_axis``: ``U`` ``(B, T-1, r)``, ``Y`` ``(B, T, m)``, ``m0``
+    ``(B, n)``; ``Q``/``R``/``P0`` shared.  Each rank runs the bank of its
+    block (``estimation.ekf(..., batched=True)``); the result, a
+    ``FilterResult`` with a leading bank axis, is the whole bank's on
+    every rank."""
+    group, sizes, (lo, hi) = _bank_block(mesh, data_axis, U, Y)
+    res = ekf(step, h, Q, R, m0[lo:hi], P0, U[lo:hi], Y[lo:hi], residual=residual,
+              batched=True)
+    return FilterResult(*(_gather_rows(t, sizes, group) for t in res))
+
+
+def sharded_pf_bank(mesh: DeviceMesh, step: Callable, h: Callable, Q, R, m0, P0, U, Y,
+                    seed: int = 0, n_particles: int = 1024, data_axis: str = "data",
+                    ess_frac: float = 0.5, residual: Callable = None):
+    """Bank of bootstrap particle filters, one per trajectory, sharded as
+    :func:`sharded_ekf_bank`.  Trajectory ``b`` draws from its own stream
+    ``estimation.pf_stream(seed, device, b)`` (the JAX package's
+    ``fold_in(key, b)``), so its filter does not depend on how the bank is
+    split over the ranks."""
+    group, sizes, (lo, hi) = _bank_block(mesh, data_axis, U, Y)
+    res = particle_filter_bank(step, h, Q, R, m0[lo:hi], P0, U[lo:hi], Y[lo:hi],
+                               n_particles=n_particles, seed=seed, ess_frac=ess_frac,
+                               residual=residual, indices=range(lo, hi))
+    return ParticleFilterResult(*(_gather_rows(t, sizes, group) for t in res))

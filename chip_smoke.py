@@ -71,6 +71,21 @@ Phases (any failure raises and ends the run with a non-zero code):
      ``ode`` at their defaults, ``ode --bdf`` and ``ode --tether`` cut to
      ``--t-end 0.3``, each endpoint against the same port call in float64
      on the host CPU;
+   - state estimation (:func:`estimation_runs`), which launches none of
+     K1-K8 (the counts are read to show it): ``apps.estimate.main`` on the
+     45,823-row pseudo recording with ``--smooth --fit-noise --fossen-fit
+     --refit-koopman`` (EKF, RTS, the noise fit on a 16 x 250 bank, the
+     Koopman refit), then each other branch once at a cut length
+     (``EST_BRANCHES``).  Checked: the RTS RMSE at least 4x below the raw
+     sensor's, the mean NIS in [9, 15], the fitted R sigmas within 5% of
+     the generator's; every CUDA-graph step loop (EKF, RTS, fit_noise, PF)
+     against its eager loop bit for bit; the PF's repeat from one seed and
+     its resampling firing; float32 against float64 on the card over the
+     recording's first 4,096 rows; the MEKF's quaternion norms; in phase
+     6, the sharded EKF and PF banks at world 1 against the unsharded
+     ones bit for bit.  Timed: every phase of the headline run, each
+     branch; the profiler's launches a step and busy share of a replayed
+     EKF and RTS chunk and of a fit_noise iteration;
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
      ``make_rollout_final_cuda``: one C call, one kernel (the profiler
      counts its device events);
@@ -121,8 +136,8 @@ Phases (any failure raises and ends the run with a non-zero code):
    is held by its increment, the mix probe at both quat13 budgets);
 8. the measured ceilings of K1-K7 from the probes' rates, and the
    measured price of one sinf and one rsqrtf in FMA-tree flops;
-9. a ``koopman apps:``, a ``learned apps:`` and a ``demo:`` JSON line, one
-   JSON line ``{"kernels": [...]}``,
+9. a ``koopman apps:``, a ``learned apps:``, a ``demo:`` and an
+   ``estimation:`` JSON line, one JSON line ``{"kernels": [...]}``,
    then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -191,6 +206,40 @@ CONV_RTOL = 1e-3
 PINC_RTOL = 6e-4
 DI_RTOL = 3e-6
 PINC_FWD_ATOL = 6e-4
+# State estimation (apps.estimate): the headline run on the full pseudo
+# recording, each other branch once at a cut length, then the checks.  The
+# headline's claims (the JAX package's run on a TPU read the smoothed
+# "all channels" RMSE 6.9x below the raw sensor's): RTS at least 4x below
+# raw, mean NIS in the chi^2_12 band below, the fitted R sigmas within 5%
+# of the generator's.
+EST_STEPS = 45_823
+EST_HEADLINE = ["--synthetic", "--recording", "--steps", str(EST_STEPS), "--smooth",
+                "--fit-noise", "--fossen-fit", "--refit-koopman", "--no-media"]
+EST_BASE = ["--synthetic", "--recording", "--no-media"]
+# (b): the app's default is 20,000 rows; cut for time except the lifted
+# filter (one launch-light step); MHE cut from README's 600 rows to 60
+EST_BRANCHES = (
+    ("pose+smooth", ["--steps", "4000", "--measure", "pose", "--smooth"]),
+    ("ukf", ["--steps", "8000", "--filter", "ukf"]),
+    ("koopman", ["--steps", "20000", "--filter", "koopman"]),
+    ("pf", ["--steps", "8000", "--noise-scale", "25", "--filter", "pf", "--q", "1e-4"]),
+    ("quat+smooth", ["--steps", "3000", "--contract", "quat", "--smooth"]),
+    ("mhe", ["--steps", "60", "--outlier-frac", "0.03", "--filter", "mhe", "--q", "1e-4"]),
+)
+EST_RTS_GAIN = 4.0
+EST_NIS_BAND = (9.0, 15.0)
+EST_R_SIGMAS = (1e-3, 2e-3, 1e-3, 2e-3)
+EST_R_RTOL = 0.05
+EST_QUAT_ATOL = 1e-5
+# (c): graph against eager bit for bit over EST_CHECK_STEPS steps (fit_noise
+# EST_FIT_CHECK_STEPS iterations on a bank of 50-step segments); float32
+# against float64 on the card over the recording's first EST_F64_ROWS rows,
+# RMSE vs truth (filter and smoother) and loglik at these relative bounds
+EST_CHECK_STEPS = 300
+EST_FIT_CHECK_STEPS = 5
+EST_F64_ROWS = 4096
+EST_F64_RTOL = {"rmse": 2e-2, "loglik": 1e-3}
+EST_PARTICLES = 1024
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 # The bounds price the audited step counts (eval/op_counts.py) at these
@@ -709,6 +758,252 @@ def demo_runs(dev, card) -> dict:
             fail(f"demo {label}: the card's endpoint is {err} from float64 on the host")
         out[label] = entry
     return out
+
+
+def estimation_runs(dev, card) -> dict:
+    """State estimation on the card (``apps.estimate.main``): (a) the
+    headline run on the 45,823-row pseudo recording (EKF with exact
+    Jacobians, RTS, the ML noise fit on a 16 x 250 bank, the Fossen fit,
+    the Koopman refit), (b) every other branch once, (c) the checks: the
+    CUDA-graph step loops against the eager ones bit for bit, float32
+    against float64, the MEKF's quaternion norms, the particle filter's
+    determinism.  Every step loop runs as replays of CUDA graphs; the
+    phase launches none of K1-K8."""
+    import tempfile
+    from pathlib import Path
+
+    from bluerov2_dynamics_tpu_torch.apps import common, estimate
+    from bluerov2_dynamics_tpu_torch.eval.timing import profile_calls
+    from bluerov2_dynamics_tpu_torch.models import estimation as est
+    from bluerov2_dynamics_tpu_torch.models import fossen
+    from bluerov2_dynamics_tpu_torch.models.params import (
+        fossen_params, lag_params, thruster_config)
+    from bluerov2_dynamics_tpu_torch.models.thrusters import effective_wrench_history
+    from bluerov2_dynamics_tpu_torch.ops import scan as scan_mod
+
+    out = {}
+    kept = []
+    load = common.load_or_generate_with_truth
+
+    def keep(*a, **k):
+        t0 = time.perf_counter()
+        r = load(*a, **k)
+        kept.append((r, time.perf_counter() - t0))
+        return r
+
+    def run_app(argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = estimate.main(argv, device=None)
+        torch.cuda.synchronize()
+        return rec, time.perf_counter() - t0
+
+    common.load_or_generate_with_truth = keep
+    try:
+        # (a) the headline run
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "estimate.json"
+            rec, secs = run_app(EST_HEADLINE + ["--json-out", str(path)])
+            if json.loads(path.read_text()) != json.loads(json.dumps(estimate.json_sanitize(rec))):
+                fail("estimation: the JSON record on disk differs from the returned one")
+        (ds, X_true, delay), gen_s = kept[-1]
+        fitn, rows = rec["fit_noise"], rec["rmse_vs_truth"]
+        raw, ekf_all, rts_all = (rows[k]["all"] for k in ("raw sensor", "EKF", "RTS smoothed"))
+        r_sig = [fitn["r_sigma_groups"][g] for g, _, _ in estimate.GROUPS]
+        print(f"estimation (a) {' '.join(EST_HEADLINE)}: {secs:.1f} s on the card: generator "
+              f"{gen_s:.2f} s, Fossen fit {rec['fossen_fit_s']:.2f} s, wrench history "
+              f"{rec['wrench_history_s']:.3f} s, noise fit {fitn['seconds']:.2f} s (graph "
+              f"capture {fitn.get('capture_s', np.nan):.2f} s, "
+              f"{fitn.get('replay_ms', np.nan):.2f} ms an iteration replayed), EKF cold {rec['filter_cold_s']:.2f} s / warm "
+              f"{rec['filter_warm_s']:.2f} s, RTS cold {rec['smooth_cold_s']:.2f} s / warm "
+              f"{rec['smooth_warm_s']:.2f} s (warm: the call less its graph capture) [{card}]")
+        print(f"estimation (a): RMSE all channels raw {raw:.6f}, EKF {ekf_all:.6f}, RTS "
+              f"{rts_all:.6f} ({raw / rts_all:.2f}x below raw); mean NIS {rec['nis_mean']:.3f}, "
+              f"mean NEES {rec['nees_mean']:.3f}; fitted R sigmas "
+              + ", ".join(f"{g} {v:.4e}" for (g, _, _), v in zip(estimate.GROUPS, r_sig))
+              + "; Koopman refit " + json.dumps(rec["koopman_refit"]))
+        out["headline"] = dict(seconds=secs, generator_s=gen_s, record=rec)
+        finite = [raw, ekf_all, rts_all, rec["nis_mean"], rec["nees_mean"], rec["loglik"], *r_sig,
+                  *(v for d in rec["koopman_refit"].values() for v in d.values())]
+        if not np.isfinite(finite).all():
+            fail(f"estimation (a): a number is not finite: {finite}")
+        if rts_all * EST_RTS_GAIN > raw:
+            fail(f"estimation (a): RTS RMSE {rts_all} not {EST_RTS_GAIN}x below raw {raw}")
+        if not EST_NIS_BAND[0] <= rec["nis_mean"] <= EST_NIS_BAND[1]:
+            fail(f"estimation (a): mean NIS {rec['nis_mean']} outside {EST_NIS_BAND}")
+        for (g, _, _), v, want in zip(estimate.GROUPS, r_sig, EST_R_SIGMAS):
+            if abs(v / want - 1.0) > EST_R_RTOL:
+                fail(f"estimation (a): fitted R sigma {g} {v} not within {EST_R_RTOL:.0%} of {want}")
+
+        # (b) every other branch once
+        branches = {}
+        for label, extra in EST_BRANCHES:
+            rec_b, secs_b = run_app(EST_BASE + extra)
+            keys = ("loglik", "nis_mean", "ess_mean", "mhe_final_cost", "nees_mean",
+                    "filter_cold_s", "filter_warm_s", "smooth_cold_s", "smooth_warm_s",
+                    "quat_norm_max_dev")
+            entry = {k: rec_b[k] for k in keys if k in rec_b}
+            entry.update(seconds=secs_b, rows=rec_b["n_rows"], rmse_all={
+                k: v["all"] for k, v in rec_b["rmse_vs_truth"].items()})
+            print(f"estimation (b) {label} ({' '.join(extra)}): {secs_b:.1f} s, "
+                  + json.dumps(entry) + f" [{card}]")
+            if label == "mhe":
+                print("estimation (b) mhe: 60 rows, cut from README's 600 for time "
+                      "(41 windows of 20 Adam iterations after the first window's 400)")
+            if not np.isfinite([v for v in entry.values() if isinstance(v, float)]).all():
+                fail(f"estimation (b) {label}: a number is not finite")
+            branches[label] = entry
+        if branches.get("quat+smooth", {}).get("quat_norm_max_dev", 0.0) > EST_QUAT_ATOL:
+            fail(f"estimation: MEKF quaternion norms {branches['quat+smooth']} beyond "
+                 f"{EST_QUAT_ATOL} of 1")
+        out["branches"] = branches
+    finally:
+        common.load_or_generate_with_truth = load
+
+    # (c) the checks, on the headline recording's first rows (nominal plant,
+    # the app's default noise model)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    p = fossen_params(device=dev)
+    step = fossen.make_wrench_step(p, DT, "euler", "euler12")
+    TAU = effective_wrench_history(thruster_config(device=dev), lag_params(DT, device=dev),
+                                   f32(ds.U[:EST_F64_ROWS]))
+    Y = f32(ds.X[:EST_F64_ROWS])
+    U = TAU[delay:delay + EST_F64_ROWS - 1]
+    R = f32(np.diag(np.repeat(np.asarray(EST_R_SIGMAS) ** 2, 3)))
+    Q, P0 = torch.eye(12, device=dev) * 1e-6, torch.eye(12, device=dev) * 1e-2
+    ident = lambda x: x  # noqa: E731
+    n = EST_CHECK_STEPS
+    checks = {}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    ekf_args = (step, ident, Q, R, Y[0], P0, U[:n - 1], Y[:n])
+    g = est.ekf(*ekf_args, graph=True)
+    checks["ekf"] = same(g, est.ekf(*ekf_args, graph=False))
+    sg = est.rts_smooth(step, Q, U[:n - 1], g, graph=True)
+    checks["rts"] = same(sg[:2], est.rts_smooth(step, Q, U[:n - 1], g, graph=False)[:2])
+    m0b, Ub, Yb = est.segment_trajectory(U[:n - 1], Y[:n], 50)
+    fit_kw = dict(q0=1e-6, r0=torch.diagonal(R), steps=EST_FIT_CHECK_STEPS, lr=0.15)
+    checks["fit_noise"] = same(est.fit_noise(step, ident, m0b, P0, Ub, Yb, graph=True, **fit_kw),
+                               est.fit_noise(step, ident, m0b, P0, Ub, Yb, graph=False, **fit_kw))
+    pf_args = (step, ident, Q * 100, R * 625, Y[0], P0, U[:n - 1], Y[:n])
+    pf = est.particle_filter(*pf_args, n_particles=EST_PARTICLES, seed=SEED, graph=True)
+    checks["pf"] = same(pf, est.particle_filter(*pf_args, n_particles=EST_PARTICLES, seed=SEED,
+                                                graph=False))
+    checks["pf_repeat"] = same(pf, est.particle_filter(*pf_args, n_particles=EST_PARTICLES,
+                                                       seed=SEED, graph=True))
+    resampled = int((pf.ess[:-1] < 0.5 * EST_PARTICLES).sum())
+    print(f"estimation (c): graph against eager bit for bit over {n} steps (fit_noise "
+          f"{EST_FIT_CHECK_STEPS} iterations of a {tuple(Yb.shape[:2])} bank): {checks}; the PF "
+          f"resampled after {resampled} of {n - 1} steps")
+    if not all(checks.values()) or resampled == 0:
+        fail(f"estimation (c): graph against eager {checks}, PF resampling steps {resampled}")
+
+    # launches a step and the device-busy share of a replayed chunk (EKF and
+    # RTS), of the RTS pass's batched Jacobian, and of a fit_noise
+    # iteration at the headline bank's 16 segments (two segment lengths:
+    # an iteration's launches are linear in them)
+    chunk = scan_mod.GRAPH_CHUNK
+
+    def traced(what, replay, per):
+        events, wall_us = profile_calls(replay, calls=1) if replay is not None else ([], 0.0)
+        if not events:
+            print(f"estimation: torch.profiler saw no device events; {what} not measured")
+            return None
+        busy = sum(e.time_range.elapsed_us() for e in events)
+        print(f"estimation: {what}: {len(events)} device events ({len(events) / per:.1f} a "
+              f"step), busy {busy:.1f} of {wall_us:.1f} us = {busy / wall_us:.4f} busy share, "
+              f"{wall_us / per:.1f} us a step [{card}]")
+        return dict(events=len(events), launches_per_step=len(events) / per, busy_us=busy,
+                    wall_us=wall_us, busy_share=busy / wall_us)
+
+    scan_mod.STATS["keep"] = True
+    f_chunk = est.ekf(step, ident, Q, R, Y[0], P0, U[:chunk], Y[:chunk + 1])
+    out["ekf_chunk"] = traced(f"one replayed EKF chunk of {chunk} steps",
+                              scan_mod.STATS.pop("replay", None), chunk)
+    scan_mod.STATS["keep"] = True
+    est.rts_smooth(step, Q, U[:chunk], f_chunk)
+    out["rts_chunk"] = traced(f"one replayed RTS chunk of {chunk} steps (the gain recursion)",
+                              scan_mod.STATS.pop("replay", None), chunk)
+    out["rts_jacobians"] = traced(
+        f"the RTS pass's batched Jacobians of {chunk} steps (once a pass, eager)",
+        lambda: est._jac(step, f_chunk.means[:-1], 12, U[:chunk]), chunk)
+    fit_events = {}
+    for seg in (10, 20):
+        st = {"keep": True}
+        m0s, Us, Ys = est.segment_trajectory(U[:16 * seg - 1], Y[:16 * seg], seg)
+        est.fit_noise(step, ident, m0s, P0, Us, Ys, q0=1e-6, r0=torch.diagonal(R), steps=1,
+                      stats=st)
+        fit_events[seg] = traced(f"one replayed fit_noise iteration, bank 16 x {seg}",
+                                 st.pop("replay", None), seg)
+    if all(fit_events.values()):
+        slope = (fit_events[20]["events"] - fit_events[10]["events"]) / 10
+        at250 = fit_events[10]["events"] + 240 * slope
+        print(f"estimation: a fit_noise iteration at the headline's 16 x 250 bank: "
+              f"{at250:.0f} launches ({slope:.1f} a filter step, from the two banks above)")
+        out["fit_noise_iteration"] = dict(launches_16x250=at250, launches_per_step=slope,
+                                          banks=fit_events)
+
+    # float32 against float64 on the card, EST_F64_ROWS rows
+    Xt = torch.as_tensor(X_true[:EST_F64_ROWS], device=dev)
+    cmp = {}
+    for dtype in (torch.float32, torch.float64):
+        c = lambda t: t.to(dtype)  # noqa: E731
+        st = fossen.make_wrench_step(fossen_params(dtype=dtype, device=dev), DT, "euler", "euler12")
+        t0 = time.perf_counter()
+        f = est.ekf(st, ident, c(Q), c(R), c(Y[0]), c(P0), c(U), c(Y))
+        sm = est.rts_smooth(st, c(Q), c(U), f)
+        torch.cuda.synchronize()
+        rm = lambda a: float(torch.sqrt(torch.mean((a.double() - Xt.double()) ** 2)))  # noqa: E731
+        cmp[str(dtype)] = dict(loglik=float(f.loglik), rmse_ekf=rm(f.means), rmse_rts=rm(sm.means),
+                               seconds=time.perf_counter() - t0)
+    a32, a64 = cmp["torch.float32"], cmp["torch.float64"]
+    rel = {k: abs(a32[k] / a64[k] - 1.0) for k in ("loglik", "rmse_ekf", "rmse_rts")}
+    print(f"estimation (c): float32 against float64 on the card over {EST_F64_ROWS} rows of the "
+          f"headline recording: {json.dumps(cmp)}; relative {json.dumps(rel)} (bounds "
+          f"{EST_F64_RTOL}) [{card}]")
+    if rel["loglik"] > EST_F64_RTOL["loglik"] or max(rel["rmse_ekf"], rel["rmse_rts"]) > \
+            EST_F64_RTOL["rmse"]:
+        fail(f"estimation (c): float32 parts from float64 by {rel}")
+    out["checks"] = dict(graph_eager=checks, pf_resampled_steps=resampled, f32_f64=cmp,
+                         f32_f64_rel=rel)
+    return out
+
+
+def est_bank_checks(mesh1, dev, card) -> dict:
+    """``sharded_ekf_bank`` and ``sharded_pf_bank`` at world 1 on the
+    one-rank group against the unsharded banks, bit for bit: 16 segments
+    of 50 steps of a random-walk wrench through the Fossen plant."""
+    from bluerov2_dynamics_tpu_torch.models import estimation as est
+    from bluerov2_dynamics_tpu_torch.models import fossen
+    from bluerov2_dynamics_tpu_torch.models.params import fossen_params
+    from bluerov2_dynamics_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(SEED + 11)
+    B, T = 16, 50
+    step = fossen.make_wrench_step(fossen_params(device=dev), DT, "euler", "euler12")
+    U = torch.as_tensor(np.cumsum(0.3 * rng.normal(size=(B, T - 1, 6)), axis=1),
+                        dtype=torch.float32, device=dev)
+    Y = torch.as_tensor(0.05 * rng.normal(size=(B, T, 12)), dtype=torch.float32, device=dev)
+    m0 = Y[:, 0]
+    Q, R, P0 = (torch.eye(12, device=dev) * v for v in (1e-4, 1e-3, 1e-2))
+    ident = lambda x: x  # noqa: E731
+    t0 = time.perf_counter()
+    got = sharded.sharded_ekf_bank(mesh1, step, ident, Q, R, m0, P0, U, Y)
+    want = est.ekf(step, ident, Q, R, m0, P0, U, Y, batched=True)
+    ekf_same = all(torch.equal(a, b) for a, b in zip(got, want))
+    got = sharded.sharded_pf_bank(mesh1, step, ident, Q, R, m0, P0, U, Y, seed=SEED,
+                                  n_particles=256)
+    want = est.particle_filter_bank(step, ident, Q, R, m0, P0, U, Y, seed=SEED, n_particles=256)
+    pf_same = all(torch.equal(a, b) for a, b in zip(got, want))
+    secs = time.perf_counter() - t0
+    print(f"estimation: sharded_ekf_bank / sharded_pf_bank at world 1 ({K7_BACKEND}) against the "
+          f"unsharded banks ({B} x {T} steps, PF 256 particles), bit for bit: {ekf_same} / "
+          f"{pf_same}; {secs:.2f} s [{card}]")
+    if not (ekf_same and pf_same):
+        fail("estimation: a sharded filter bank at world 1 differs from the unsharded bank")
+    return dict(ekf=ekf_same, pf=pf_same, seconds=secs)
 
 
 def koopman_apps(dev, card, drive) -> dict:
@@ -1247,6 +1542,13 @@ def main() -> None:
     learned, fit_ctx = learned_apps(dev, card, drive)
     # the physics demo
     demos = demo_runs(dev, card)
+    # state estimation (launches none of K1-K8: the counts are read to show it)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    estimation = estimation_runs(dev, card)
+    torch.cuda.synchronize()
+    estimation["launches"] = dict(_build.launches)
+    print(f"estimation: launches {estimation['launches']}")
 
     # the recording: the port's own simulator on the card, plus sensor noise
     t0 = time.perf_counter()
@@ -1753,6 +2055,7 @@ def main() -> None:
                 meshed.log_scales, one.log_scales, rtol=MESH_RTOL["scales"], atol=1e-5):
             fail("the Fossen fit with mesh= at world 1 differs from mesh=None")
         learned["sysid"]["mesh_world1"] = dict(loss_rel=rel_l, scale_rel=rel_s, seconds=mesh_s)
+        estimation["checks"]["sharded_banks_world1"] = est_bank_checks(mesh1, dev, card)
     finally:
         dist.destroy_process_group()
 
@@ -2009,6 +2312,7 @@ def main() -> None:
     print("koopman apps: " + json.dumps(apps, default=float))
     print("learned apps: " + json.dumps(learned, default=float))
     print("demo: " + json.dumps(demos, default=float))
+    print("estimation: " + json.dumps(estimation, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -535,3 +535,69 @@ def test_sysid_fit_on_four_ranks_matches_one_device(four_ranks, sysid_single):
 def test_world1_sysid_mesh_fit_matches_one_device(mesh1, data, sysid_single):
     d = {k: torch.from_numpy(v) for k, v in data.items()}
     _check_sysid(trc.sysid_fits(d, mesh1), sysid_single)
+
+
+# --- filter banks -------------------------------------------------------------------
+
+def _one_process_banks(data, B):
+    """The port's unsharded EKF and PF banks of the first ``B`` trajectories."""
+    from bluerov2_dynamics_tpu_torch.models import estimation as te
+
+    d = {k: torch.from_numpy(v) for k, v in data.items()}
+    step, h, Q, R, P0 = trc.bank_model(d)
+    m0, U, Y = trc.bank_args(d, B)
+    ekf = te.ekf(step, h, Q, R, m0, P0, U, Y, batched=True)
+    m0, U, Y = trc.bank_args(d, B, pf=True)
+    pf = te.particle_filter_bank(step, h, Q, R, m0, P0, U, Y, n_particles=trc.BANK_PARTICLES,
+                                 seed=trc.BANK_SEED)
+    return ekf, pf
+
+
+@pytest.mark.parametrize("B", trc.BANK_SIZES)
+def test_sharded_ekf_bank_matches_one_process_and_jax(B, four_ranks, data):
+    """Each rank's gathered bank against the one-process bank (rtol 1e-9)
+    and its first and last rows against the JAX package's single filter
+    (``tests/test_parallel.py``'s tolerances)."""
+    from bluerov2_dynamics_tpu.models import estimation as je
+
+    one, _ = _one_process_banks(data, B)
+    A, Bm = jnp.asarray(data["A"]), jnp.asarray(data["B"])
+    jstep = lambda x, u: x @ A + u @ Bm  # noqa: E731
+    m0, U, Y = (a.numpy() for a in trc.bank_args({k: torch.from_numpy(v) for k, v in
+                                                   data.items()}, B))
+    for r in four_ranks:
+        got = r[f"ekf_bank_{B}"]
+        for g, w in zip(got, one):
+            np.testing.assert_allclose(g, w.numpy(), **TOL64)
+        for b in (0, B - 1):
+            want = je.ekf(jstep, lambda x: x[:2], jnp.eye(3) * 1e-4, jnp.eye(2) * 1e-2, m0[b],
+                          jnp.eye(3) * 0.1, U[b], Y[b])
+            np.testing.assert_allclose(got[0][b], np.asarray(want.means), rtol=1e-6, atol=1e-9)
+            np.testing.assert_allclose(got[1][b], np.asarray(want.covs), rtol=1e-5, atol=1e-10)
+            np.testing.assert_allclose(got[2][b], float(want.loglik), rtol=1e-8)
+        assert "transition inputs per trajectory" in r["bank_short_u"]
+
+
+@pytest.mark.parametrize("B", trc.BANK_SIZES)
+def test_sharded_pf_bank_matches_one_process(B, four_ranks, data):
+    """Per-trajectory streams: the bank split over 4 ranks equals the
+    one-process bank (the JAX package's ``fold_in`` property)."""
+    _, one = _one_process_banks(data, B)
+    for r in four_ranks:
+        for g, w in zip(r[f"pf_bank_{B}"], one):
+            np.testing.assert_allclose(g, w.numpy(), rtol=1e-9, atol=1e-12)
+
+
+def test_world1_sharded_banks_equal_the_unsharded_banks(mesh1, data):
+    """At world 1 the sharded banks are the unsharded ones, bit for bit."""
+    d = {k: torch.from_numpy(v) for k, v in data.items()}
+    step, h, Q, R, P0 = trc.bank_model(d)
+    for B in trc.BANK_SIZES:
+        ekf, pf = _one_process_banks(data, B)
+        m0, U, Y = trc.bank_args(d, B)
+        got = sharded.sharded_ekf_bank(mesh1, step, h, Q, R, m0, P0, U, Y)
+        assert all(torch.equal(g, w) for g, w in zip(got, ekf))
+        m0, U, Y = trc.bank_args(d, B, pf=True)
+        got = sharded.sharded_pf_bank(mesh1, step, h, Q, R, m0, P0, U, Y, seed=trc.BANK_SEED,
+                                      n_particles=trc.BANK_PARTICLES)
+        assert all(torch.equal(g, w) for g, w in zip(got, pf))

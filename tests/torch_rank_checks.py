@@ -31,6 +31,12 @@ PINC_TRAIN = dict(epochs=3, batch=64, rollout_steps=5, rollout_windows=8, normal
 # 404 rows, horizon 3, 6 Adam steps, input delay 1
 SYSID_N = 404
 SYSID_FIT = dict(horizon=3, steps=6, lr=0.05, input_delay=1)
+# the filter banks (tests/test_parallel.py::test_sharded_*_bank_*): a
+# 3-state linear system seen in 2 channels, banks of 16 and 11
+# trajectories (divisible by 4 and not), 30 EKF steps, 20 PF steps of 64
+# particles
+BANK_SIZES = (16, 11)
+BANK_T, BANK_T_PF, BANK_PARTICLES, BANK_SEED = 30, 20, 64, 4
 
 
 def inputs(seed: int = 0) -> dict:
@@ -71,6 +77,11 @@ def inputs(seed: int = 0) -> dict:
     X13 = np.concatenate([d["sysid_X"][:, :3], np.ones((SYSID_N, 1)),
                           0.05 * d["sysid_X"][:, 3:6], d["sysid_X"][:, 6:]], axis=1)
     d["sysid_X13"] = X13
+    rng = np.random.default_rng(seed + 3)
+    B = max(BANK_SIZES)
+    d["bank_U"] = rng.normal(size=(B, BANK_T - 1, 2))
+    d["bank_Y"] = rng.normal(size=(B, BANK_T, 2))
+    d["bank_m0"] = rng.normal(size=(B, 3))
     return d
 
 
@@ -194,6 +205,40 @@ def fossen_step():
                                    DT, "rk4")
 
 
+def bank_model(d):
+    """``(step, h, Q, R, P0)`` of the filter-bank checks (float64)."""
+    eye = lambda k: torch.eye(k, dtype=torch.float64)  # noqa: E731
+    return linear_step(d), (lambda x: x[:2]), eye(3) * 1e-4, eye(2) * 1e-2, eye(3) * 0.1
+
+
+def bank_args(d, B: int, pf: bool = False):
+    """``(m0, U, Y)`` of the bank of the first ``B`` trajectories (the PF's
+    cut to ``BANK_T_PF`` steps)."""
+    T = BANK_T_PF if pf else BANK_T
+    return d["bank_m0"][:B], d["bank_U"][:B, :T - 1], d["bank_Y"][:B, :T]
+
+
+def bank_checks(d, mesh) -> dict:
+    """The sharded EKF and PF banks on this rank (each the whole bank's
+    result, as numpy), and the error of a bank with a short ``U``."""
+    from bluerov2_dynamics_tpu_torch.parallel import sharded
+
+    step, h, Q, R, P0 = bank_model(d)
+    out = {}
+    for B in BANK_SIZES:
+        m0, U, Y = bank_args(d, B)
+        res = sharded.sharded_ekf_bank(mesh, step, h, Q, R, m0, P0, U, Y)
+        out[f"ekf_bank_{B}"] = [t.numpy() for t in res]
+        m0, U, Y = bank_args(d, B, pf=True)
+        res = sharded.sharded_pf_bank(mesh, step, h, Q, R, m0, P0, U, Y, seed=BANK_SEED,
+                                      n_particles=BANK_PARTICLES)
+        out[f"pf_bank_{B}"] = [t.numpy() for t in res]
+    m0, U, Y = bank_args(d, 16)
+    out["bank_short_u"] = _error(lambda: sharded.sharded_ekf_bank(
+        mesh, step, h, Q, R, m0, P0, U[:, :-1], Y))
+    return out
+
+
 def _error(fn):
     try:
         fn()
@@ -263,6 +308,7 @@ def all_checks(rank: int, world: int) -> dict:
     out.update(koopman_checks(d, mesh, mesh2))
     out.update(pinc_checks(mesh))
     out["sysid"] = sysid_fits(d, mesh)
+    out.update(bank_checks(d, mesh))
     return out
 
 
