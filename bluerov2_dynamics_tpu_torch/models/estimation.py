@@ -54,7 +54,6 @@ how the tests feed it the JAX package's own.
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -65,7 +64,7 @@ from bluerov2_dynamics_tpu_torch.models import sysid
 from bluerov2_dynamics_tpu_torch.models.koopman import KoopmanModel, lift
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
 from bluerov2_dynamics_tpu_torch.ops.quaternion import quat_exp, quat_log, quat_multiply
-from bluerov2_dynamics_tpu_torch.ops.scan import add_capture, scan, use_graph
+from bluerov2_dynamics_tpu_torch.ops.scan import capture, scan, use_graph
 
 _LOG2PI = 1.8378770664093453
 PF_TAG = 7          # stream tag of the particle filter's draws
@@ -717,10 +716,9 @@ def mhe(step: Callable, h: Callable, Q, R, m0, P0, U, Y, window: int = 25,
         return loss.reshape(1).clone(), X_w.clone()
 
     with full_f32():
-        run_iteration, run_final, graphs = iteration, final, []
-        if use_graph(graph, dev):
-            run_iteration, run_final, graphs = _mhe_graphs(iteration, final,
-                                                           leaves + mu + nu + [count])
+        graph = use_graph(graph, dev)
+        run_iteration, run_final = capture([iteration, final], leaves + mu + nu + [count], graph,
+                                           warmup=sysid.GRAPH_WARMUP)
         loss0, X0_w = optimize(init_iters)
         X_prev, means, losses = X0_w, [X0_w], [loss0]
         for j in range(1, T - W + 1):
@@ -733,36 +731,9 @@ def mhe(step: Callable, h: Callable, Q, R, m0, P0, U, Y, window: int = 25,
             loss_f, X_prev = optimize(iters)
             means.append(X_prev[-1:])
             losses.append(loss_f)
-        if graphs:
+        if graph:
             torch.cuda.current_stream(dev).synchronize()
     return MHEResult(means=torch.cat(means), losses=torch.cat(losses))
-
-
-def _mhe_graphs(iteration: Callable, final: Callable, state: list):
-    """One MHE Adam iteration and the final window cost as CUDA graphs:
-    ``(run_iteration, run_final, graphs)``.  The warm-up iterations run on
-    a side stream and the state they touched is restored."""
-    t0 = time.perf_counter()
-    dev = state[0].device
-    saved = [t.detach().clone() for t in state]
-    stream = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
-        for _ in range(sysid.GRAPH_WARMUP):
-            iteration()
-        final()
-    stream.wait_stream(side)
-    with torch.no_grad():
-        for t, s in zip(state, saved):
-            t.copy_(s)
-    g_iter, g_final = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g_iter):
-        iteration()
-    with torch.cuda.graph(g_final):
-        static = final()
-    add_capture(time.perf_counter() - t0)
-    return g_iter.replay, (lambda: (g_final.replay(), static)[1]), [g_iter, g_final]
 
 
 # ---------------------------------------------------------------------------

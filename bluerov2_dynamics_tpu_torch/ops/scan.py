@@ -16,6 +16,10 @@ kernels in the same order, so the two give the same bits.
 ``draw(start, stop)`` supplies inputs made at run time (random draws),
 chunk by chunk and in the same order on both paths, so that a run never
 holds the whole run's draws at once.
+
+A loop that is not a scan (an optimiser's iteration, a sampling round)
+runs through :func:`capture`: its body is a function of static buffers,
+captured once and replayed.
 """
 
 from __future__ import annotations
@@ -41,6 +45,49 @@ def add_capture(seconds: float) -> None:
     """Account one capture's warm-up and capture seconds in :data:`STATS`."""
     STATS["capture_s"] += seconds
     STATS["graphs"] += 1
+
+
+def capture(fns: Sequence[Callable], state: Sequence[torch.Tensor], graph: bool,
+            stats: Optional[dict] = None, names: Optional[Sequence[str]] = None,
+            warmup: int = 1) -> list:
+    """Each of ``fns`` (functions of no argument that read and write the
+    tensors of ``state`` in place and return tensors) as a callable: the
+    function itself, or with ``graph`` the replay of its CUDA graph, which
+    returns the outputs of the capture (static tensors, overwritten by the
+    next replay).  ``warmup`` rounds of calls run on a side stream first
+    and the state they change is restored.  A failed capture raises.
+    ``stats`` receives the capture's host seconds and, with
+    ``stats["keep"]`` set, the replays under ``stats["replay"]`` (keyed by
+    ``names``), to trace them."""
+    if not graph:
+        return list(fns)
+    t0 = time.perf_counter()
+    dev = state[0].device
+    saved = [t.detach().clone() for t in state]
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            for f in fns:
+                f()
+    main.wait_stream(side)
+    with torch.no_grad():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+    runs = []
+    for f in fns:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = f()
+        runs.append(lambda g=g, out=out: (g.replay(), out)[1])
+    secs = time.perf_counter() - t0
+    add_capture(secs)
+    if stats is not None:
+        stats["capture_s"] = stats.get("capture_s", 0.0) + secs
+        if stats.pop("keep", False):
+            stats["replay"] = dict(zip(names or range(len(runs)), runs))
+    return runs
 
 
 def use_graph(graph: Optional[bool], device: torch.device) -> bool:

@@ -69,7 +69,7 @@ Phases (any failure raises and ends the run with a non-zero code):
      the graph fit;
    - the physics demo (:func:`demo_runs`): ``apps.demo`` ``euler`` and
      ``ode`` at their defaults, ``ode --bdf`` and ``ode --tether`` cut to
-     ``--t-end 0.3``, each endpoint against the same port call in float64
+     ``--t-end 0.1``, each endpoint against the same port call in float64
      on the host CPU;
    - state estimation (:func:`estimation_runs`), which launches none of
      K1-K8 (the counts are read to show it): ``apps.estimate.main`` on the
@@ -86,6 +86,19 @@ Phases (any failure raises and ends the run with a non-zero code):
      ones bit for bit.  Timed: every phase of the headline run, each
      branch; the profiler's launches a step and busy share of a replayed
      EKF and RTS chunk and of a fit_noise iteration;
+   - control and guidance (:func:`control_runs`), which launches none of
+     K1-K8 (the counts are read to show it): ``apps.control_demo.main``
+     with ``all`` at the demo's default sizes (hover LQR, Koopman-LQR on
+     60 x 100 episodes and 100 RBFs, trajopt 250 x 8 over 250 Adam
+     iterations), then ``mppi``, ``ilqr``, ``lqg``, ``adaptive`` and
+     ``los`` at their defaults and ``mpc`` cut to 10 plant steps of 300.
+     Checked: every CUDA-graph loop (closed loop, trajopt, MPPI, MPC, LQG,
+     LOS, iLQR) against its eager loop bit for bit, MPPI's repeat from one
+     seed, ``fossen_lqr`` in float32 against float64, the task claims at
+     the JAX package's test thresholds; in phase 6, ``simulate_mppi``
+     with ``mesh=`` at world 1 against the unsharded call bit for bit.
+     Timed: every task; the profiler's launches and busy share of one
+     trajopt iteration, one MPPI round and one MPC Adam iteration;
    - K1: the shared-input RK4 rollout at B=65,536 x T=500 through
      ``make_rollout_final_cuda``: one C call, one kernel (the profiler
      counts its device events);
@@ -136,8 +149,9 @@ Phases (any failure raises and ends the run with a non-zero code):
    is held by its increment, the mix probe at both quat13 budgets);
 8. the measured ceilings of K1-K7 from the probes' rates, and the
    measured price of one sinf and one rsqrtf in FMA-tree flops;
-9. a ``koopman apps:``, a ``learned apps:``, a ``demo:`` and an
-   ``estimation:`` JSON line, one JSON line ``{"kernels": [...]}``,
+9. a ``koopman apps:``, a ``learned apps:``, a ``demo:``, an
+   ``estimation:`` and a ``control:`` JSON line, one JSON line
+   ``{"kernels": [...]}``,
    then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -188,7 +202,7 @@ ZERO_NOMINAL = (12, 14, 16)         # Yv, Kp, Nr: zero in Table A1, unidentifiab
 FIT_F64_RTOL = 1e-3
 MESH_RTOL = {"losses": 2e-4, "scales": 1e-3}
 # the demo: its endpoints on the card (float32) against float64 on the host
-DEMO_TETHER_T_END = 0.3             # 30 outer steps x 40 RK4 substeps, eager
+DEMO_TETHER_T_END = 0.1             # 10 outer steps x 40 RK4 substeps, eager
 DEMO_ATOL = 1e-4
 TRAIN_PROFILE_STEPS = 5             # minibatch steps traced for the device-busy share
 # The Koopman RMSEs on the card (float32 k-means, lifts and propagation; the
@@ -240,6 +254,26 @@ EST_FIT_CHECK_STEPS = 5
 EST_F64_ROWS = 4096
 EST_F64_RTOL = {"rmse": 2e-2, "loglik": 1e-3}
 EST_PARTICLES = 1024
+# Control and guidance (control_runs): (a) ``all`` at the demo's default
+# sizes, (b) every opt-in task, MPC cut from 300 plant steps to
+# CTRL_MPC_STEPS for time (its plan width and iterations kept), (c) the
+# checks.  The claims hold at the thresholds the JAX package's tests
+# assert: hover |x| at the end (tests/test_control.py:100), trajopt's last
+# loss against its first and terminal error in m (:158-159), MPPI's closest
+# approach in obstacle radii and final error in m (:513-515), iLQR's
+# feedback error against open-loop replay (:479); LOS hits every waypoint
+# (tests/test_guidance.py:171).
+CTRL_TASKS = ("mppi", "ilqr", "lqg", "adaptive", "los")
+CTRL_MPC_STEPS = 10
+CTRL_HOVER_END = 1e-2
+CTRL_TRAJOPT = (1e-3, 0.05)
+CTRL_MPPI = (0.9, 0.15)
+CTRL_ILQR_GAIN = 0.4
+# float32 against float64, fossen_lqr end to end: trim's Adam wanders at
+# float32's floor near the optimum (measured on the host CPU: K 1.9e-3
+# relative, u_eq 9.4e-4 absolute); the linearization and the Riccati
+# iteration alone at the float64 trim point measured 1.1e-6 there
+CTRL_F64 = {"K": 5e-3, "u_eq": 2e-3, "K_same_trim": 1e-4}
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 # The bounds price the audited step counts (eval/op_counts.py) at these
@@ -1006,6 +1040,230 @@ def est_bank_checks(mesh1, dev, card) -> dict:
     return dict(ekf=ekf_same, pf=pf_same, seconds=secs)
 
 
+def control_runs(dev, card) -> dict:
+    """Control and guidance on the card (``apps.control_demo``): (a)
+    ``all`` at the demo's default sizes (hover LQR, Koopman-LQR, trajopt);
+    (b) every opt-in task once, MPC cut to CTRL_MPC_STEPS plant steps;
+    (c) the checks: every CUDA-graph loop against its eager loop bit for
+    bit, MPPI's repeat from one seed, float32 against float64, and the task
+    claims.  The launches of one trajopt iteration, one MPPI round and one
+    MPC Adam iteration are the profiler's device events of one replay.  The
+    phase launches none of K1-K8."""
+    from bluerov2_dynamics_tpu_torch.apps import control_demo as cd
+    from bluerov2_dynamics_tpu_torch.eval.timing import profile_calls
+    from bluerov2_dynamics_tpu_torch.models import control, fossen, guidance
+    from bluerov2_dynamics_tpu_torch.models.params import (
+        fossen_params, lag_params, thruster_config)
+
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def traced(what, stats, key):
+        replay = stats.get("replay")
+        replay = replay.get(key) if isinstance(replay, dict) else replay
+        events, wall_us = profile_calls(replay, calls=1) if replay is not None else ([], 0.0)
+        if not events:
+            print(f"control: torch.profiler saw no device events; {what} not measured")
+            return None
+        busy = sum(e.time_range.elapsed_us() for e in events)
+        print(f"control: {what}: {len(events)} device events (launches) a replay, busy "
+              f"{busy:.1f} of {wall_us:.1f} us = {busy / wall_us:.4f} busy share [{card}]")
+        return dict(launches=len(events), busy_us=busy, wall_us=wall_us,
+                    busy_share=busy / wall_us)
+
+    def with_stats(name, stats):
+        """``cd.<name>`` wrapped to pass ``stats`` (restored by the caller)."""
+        orig = getattr(cd, name)
+        setattr(cd, name, lambda **kw: orig(stats=stats, **kw))
+        return orig
+
+    # (a) brov2-control all, at the demo's default sizes
+    st_traj = {"keep": True}
+    orig = with_stats("run_waypoint", st_traj)
+    try:
+        res, secs = timed(lambda: cd.main(["all"], device=None))
+    finally:
+        cd.run_waypoint = orig
+    hov, koop, way = res["hover"], res["koopman"], res["waypoint"]
+    traj_it = traced("one trajopt iteration (250 x 8 plan, 250-step rollout and backward)",
+                     st_traj, None)
+    print(f"control (a) all: {secs:.1f} s on the card [{card}]; hover |x| "
+          f"{hov['initial_norm']:.3f} -> {hov['final_norm']:.3e}; EDMDc fit {koop['fit_s']:.2f} s, "
+          f"lifted Riccati ({koop['lift_dim']}-dim) {koop['lqr_s']:.2f} s, Koopman-LQR |x| "
+          f"{koop['initial_norm']:.3f} -> {koop['final_norm']:.3e}; trajopt loss "
+          f"{way['losses'][0]:.3e} -> {way['losses'][-1]:.3e}, terminal error "
+          f"{way['terminal_error']:.3e} m, {way['seconds']:.2f} s, an iteration replayed in "
+          f"{st_traj.get('replay_ms', float('nan')):.3f} ms (capture "
+          f"{st_traj.get('capture_s', float('nan')):.2f} s)")
+    out["all"] = dict(seconds=secs, hover={k: hov[k] for k in ("initial_norm", "final_norm")},
+                      koopman={k: koop[k] for k in ("initial_norm", "final_norm", "fit_s",
+                                                     "lqr_s", "lift_dim")},
+                      trajopt=dict(loss_first=float(way["losses"][0]),
+                                   loss_last=float(way["losses"][-1]),
+                                   terminal_error=way["terminal_error"], seconds=way["seconds"],
+                                   replay_ms=st_traj.get("replay_ms"),
+                                   capture_s=st_traj.get("capture_s"), iteration=traj_it))
+    claims = {"hover_final_norm": (hov["final_norm"], hov["final_norm"] < CTRL_HOVER_END),
+              "trajopt_loss_ratio": (way["losses"][-1] / way["losses"][0],
+                                     way["losses"][-1] < CTRL_TRAJOPT[0] * way["losses"][0]),
+              "trajopt_terminal_error": (way["terminal_error"],
+                                         way["terminal_error"] < CTRL_TRAJOPT[1])}
+
+    # (b) every opt-in task once
+    tasks = {}
+    st_mppi = {"keep": True}
+    orig = with_stats("run_mppi", st_mppi)
+    try:
+        for task in CTRL_TASKS:
+            r, secs = timed(lambda: cd.main([task], device=None))
+            tasks[task] = dict(r[task], wall_s=secs)
+    finally:
+        cd.run_mppi = orig
+    print(f"control (b) mpc: {CTRL_MPC_STEPS} plant steps instead of the demo's 300, cut for "
+          f"time; the plan kept at 60 x 8 with 20 Adam iterations a step and 150 initial")
+    st_mpc = {"keep": True}
+    r, secs = timed(lambda: cd.run_mpc(sim_steps=CTRL_MPC_STEPS, stats=st_mpc))
+    tasks["mpc"] = dict(r, wall_s=secs)
+    scalars = {t: {k: v for k, v in d.items() if isinstance(v, (float, int, bool))}
+               for t, d in tasks.items()}
+    for t, d in scalars.items():
+        print(f"control (b) {t}: " + json.dumps(d, default=float) + f" [{card}]")
+    mppi_round = traced("one MPPI round (512 samples x 60 steps, costs, softmax, update)",
+                        st_mppi, "round")
+    mpc_iter = traced("one MPC Adam iteration (60 x 8 plan, 60-step rollout and backward)",
+                      st_mpc, "iteration")
+    out["tasks"] = dict(scalars, mppi_round=mppi_round, mpc_iteration=mpc_iter,
+                        mpc_cut=f"{CTRL_MPC_STEPS} plant steps of 300")
+    radius = cd.MPPI_OBSTACLE[2]
+    m, il, los = tasks["mppi"], tasks["ilqr"], tasks["los"]
+    claims.update({
+        "mppi_min_dist": (m["min_dist"], m["min_dist"] > CTRL_MPPI[0] * radius),
+        "mppi_final_err": (m["final_err"], m["final_err"] < CTRL_MPPI[1]),
+        "ilqr_feedback_ratio": (il["feedback_error"] / il["open_loop_error"],
+                                il["feedback_error"] < CTRL_ILQR_GAIN * il["open_loop_error"]),
+        "los_all_hit": (los["all_hit"], los["all_hit"]),
+    })
+
+    # (c) graph against eager, bit for bit, at cut sizes
+    p, cfg = fossen_params(device=dev), thruster_config(device=dev)
+    plant = fossen.make_thruster_step(p, cfg, lag_params(DT, device=dev), DT, "euler")
+    carry = cd._carry
+    get = cd._get
+    zero = torch.zeros(12, device=dev)
+    pol = control.fossen_lqr(p, cfg, DT)
+    x_h = cd._perturbed_x0(dev)
+    target = cd._state(dev, x0=1.0, x1=0.5, x2=-0.3)
+    x_m = cd._state(dev, x0=1.5)
+    x_c = cd._state(dev, x0=1.5, x1=0.5, x5=3.0)
+    mppi_kw = dict(sim_steps=10, horizon=30, n_samples=64, sigma=0.15, init_rounds=2,
+                   replan_rounds=2, effort_weight=1e-2, carry_init=carry, get_state=get,
+                   seed=SEED)
+    plan = guidance.make_plan([0, 0, 0], cd.LOS_WAYPOINTS, device=dev)
+    runs = {
+        "closed_loop": lambda g: control.simulate_closed_loop(plant, pol, carry(x_h), 100, get,
+                                                              graph=g),
+        "trajopt": lambda g: control.trajopt(plant, zero, target, horizon=50, steps=5,
+                                             carry_init=carry, get_state=get, graph=g),
+        "mppi": lambda g: control.simulate_mppi(plant, x_m, zero, graph=g, **mppi_kw),
+        "mpc": lambda g: control.simulate_mpc(plant, x_c, zero, sim_steps=1, horizon=60,
+                                              replan_iters=3, init_iters=2, carry_init=carry,
+                                              get_state=get, graph=g),
+        "lqg": lambda g: control.simulate_lqg(plant, pol, lambda x: x[:6], 1e-8, 2.5e-5,
+                                              carry(x_h), 50, seed=SEED, get_state=get, graph=g),
+        "los": lambda g: guidance.simulate_los_mission(plant, pol, plan, carry(zero), 200,
+                                                       get_state=get, graph=g),
+        "ilqr": lambda g: control.ilqr(plant, zero, target, horizon=50, iters=2,
+                                       carry_init=carry, get_state=get, graph=g),
+    }
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    checks, t0 = {}, time.perf_counter()
+    for name, fn in runs.items():
+        g = fn(True)
+        checks[name] = same(g, fn(False))
+        if name == "mppi":
+            checks["mppi_repeat"] = same(g, fn(True))
+    torch.cuda.synchronize()
+    print(f"control (c): graph against eager bit for bit (closed loop 100 steps, trajopt 5 "
+          f"iterations at H=50, MPPI 10 plant steps at 64 samples, one MPC plant step at "
+          f"H=60, LQG 50 steps, LOS 200 steps, iLQR 2 sweeps at H=50) and MPPI's repeat from "
+          f"one seed: {checks}; {time.perf_counter() - t0:.1f} s")
+    if not all(checks.values()):
+        fail(f"control (c): a graph differs from its eager loop: {checks}")
+
+    # float32 against float64 on the card (CTRL_F64's bounds, stated before the run)
+    lqr = {dt: control.fossen_lqr(fossen_params(dtype=dt, device=dev),
+                                  thruster_config(dtype=dt, device=dev), DT, dtype=dt)
+           for dt in (torch.float32, torch.float64)}
+    K32, K64 = (lqr[dt].K.double() for dt in (torch.float32, torch.float64))
+    u_at = lqr[torch.float64].u_eq
+    K_same = {}
+    for dt in (torch.float32, torch.float64):
+        nolag = fossen.make_thruster_step(
+            fossen_params(dtype=dt, device=dev), thruster_config(dtype=dt, device=dev),
+            lag_params(DT, dtype=dt, device=dev), DT, "euler", use_lag=False)
+        lag0 = torch.zeros((8, 3), dtype=dt, device=dev)
+        A, B = control.linearize(lambda x, u: nolag((x, lag0), u)[0],
+                                 torch.zeros(12, dtype=dt, device=dev), u_at.to(dt))
+        K_same[dt], _ = control.dlqr(A, B, torch.eye(12, dtype=dt, device=dev),
+                                     0.1 * torch.eye(8, dtype=dt, device=dev))
+    f64 = {"K": float((K32 - K64).abs().max() / K64.abs().max()),
+           "u_eq": float((lqr[torch.float32].u_eq.double() - u_at).abs().max()),
+           "K_same_trim": float((K_same[torch.float32].double() - K_same[torch.float64]).abs().max()
+                                / K_same[torch.float64].abs().max())}
+    print(f"control (c): fossen_lqr float32 against float64 on the card: K relative "
+          f"{f64['K']:.3e} (bound {CTRL_F64['K']:g}), u_eq max abs {f64['u_eq']:.3e} (bound "
+          f"{CTRL_F64['u_eq']:g}); linearization + Riccati at the float64 trim point: K "
+          f"relative {f64['K_same_trim']:.3e} (bound {CTRL_F64['K_same_trim']:g}) [{card}]")
+    if any(f64[k] > CTRL_F64[k] for k in CTRL_F64):
+        fail(f"control (c): float32 parts from float64: {f64}")
+
+    claims = {k: (float(v), bool(h)) for k, (v, h) in claims.items()}
+    print("control (c): task claims at the JAX package's test thresholds: " + json.dumps(
+        {k: {"value": v, "holds": h} for k, (v, h) in claims.items()}))
+    if not all(h for _, h in claims.values()):
+        fail(f"control (c): a task claim fails on the card: {claims}")
+    out["checks"] = dict(graph_eager=checks, f32_f64=f64,
+                         claims={k: v for k, (v, _) in claims.items()})
+    return out
+
+
+def control_mesh_check(mesh1, dev, card) -> dict:
+    """``simulate_mppi(mesh=...)`` at world 1 on the one-rank group against
+    the unsharded call, bit for bit (the draws are the same; the minimum,
+    the softmax's denominator and the weighted noise all-reduce over one
+    rank)."""
+    from bluerov2_dynamics_tpu_torch.models import control, fossen
+    from bluerov2_dynamics_tpu_torch.models.params import (
+        fossen_params, lag_params, thruster_config)
+
+    p, cfg = fossen_params(device=dev), thruster_config(device=dev)
+    plant = fossen.make_thruster_step(p, cfg, lag_params(DT, device=dev), DT, "euler")
+    x0 = torch.zeros(12, device=dev)
+    x0[0] = 1.5
+    kw = dict(sim_steps=10, horizon=30, n_samples=64, sigma=0.15, init_rounds=2, replan_rounds=2,
+              carry_init=lambda x: (x, torch.zeros((8, 3), device=dev)),
+              get_state=lambda c: c[0], seed=SEED)
+    t0 = time.perf_counter()
+    got = control.simulate_mppi(plant, x0, torch.zeros(12, device=dev), mesh=mesh1, **kw)
+    want = control.simulate_mppi(plant, x0, torch.zeros(12, device=dev), **kw)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    secs = time.perf_counter() - t0
+    print(f"control: simulate_mppi with mesh= at world 1 ({K7_BACKEND}) against the unsharded "
+          f"call (64 samples, 10 plant steps), bit for bit: {same}; {secs:.2f} s [{card}]")
+    if not same:
+        fail("control: simulate_mppi with mesh= at world 1 differs from the unsharded call")
+    return dict(same=same, seconds=secs)
+
+
 def koopman_apps(dev, card, drive) -> dict:
     """The Koopman apps T2 (``tank_koopman``: the pseudo recording at its
     full 45,823 steps, 500 RBFs, the Fossen baseline on K2 fused, and with
@@ -1549,6 +1807,12 @@ def main() -> None:
     torch.cuda.synchronize()
     estimation["launches"] = dict(_build.launches)
     print(f"estimation: launches {estimation['launches']}")
+    # control and guidance (launches none of K1-K8: the counts are read to show it)
+    _build.reset_launch_counts()
+    ctrl = control_runs(dev, card)
+    torch.cuda.synchronize()
+    ctrl["launches"] = dict(_build.launches)
+    print(f"control: launches {ctrl['launches']}")
 
     # the recording: the port's own simulator on the card, plus sensor noise
     t0 = time.perf_counter()
@@ -2056,6 +2320,7 @@ def main() -> None:
             fail("the Fossen fit with mesh= at world 1 differs from mesh=None")
         learned["sysid"]["mesh_world1"] = dict(loss_rel=rel_l, scale_rel=rel_s, seconds=mesh_s)
         estimation["checks"]["sharded_banks_world1"] = est_bank_checks(mesh1, dev, card)
+        ctrl["checks"]["mppi_world1"] = control_mesh_check(mesh1, dev, card)
     finally:
         dist.destroy_process_group()
 
@@ -2313,6 +2578,7 @@ def main() -> None:
     print("learned apps: " + json.dumps(learned, default=float))
     print("demo: " + json.dumps(demos, default=float))
     print("estimation: " + json.dumps(estimation, default=float))
+    print("control: " + json.dumps(ctrl, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

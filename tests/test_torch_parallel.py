@@ -23,7 +23,9 @@ steps) over 4 ranks and on a one-rank group against the single-device
 fit at the JAX test's tolerances (``tests/test_sysid.py``): losses at rtol
 2e-4, log-scales, gains and current at rtol 1e-3 and atol 1e-5, and the
 Laplace stderrs with the same ``inf`` entries and the finite ones at rtol
-1e-3.
+1e-3.  MPPI with its sample axis over 4 ranks (64 and 60 samples) against
+the one-process run at the float64 step loops' tolerance, and bit for bit
+at world 1.
 """
 
 import os
@@ -349,6 +351,29 @@ def test_world1_pinc_training_equals_one_device(mesh1, pinc_inputs):
     net, hist = trc.pinc_train(d)
     assert hist1 == hist
     assert all(torch.equal(a, b) for a, b in zip(net1.parameters(), net.parameters()))
+
+
+# --- MPPI over the sample axis ----------------------------------------------------
+
+def test_sharded_mppi_matches_the_one_process_run(four_ranks, data):
+    """The sample axis split over 4 ranks (16 and 15 samples a rank): the
+    draws are the one-process run's, the reductions reordered."""
+    want = trc.mppi_runs(data)
+    for n in trc.MPPI_SAMPLES:
+        X, U = want[f"mppi_{n}"]
+        for r in four_ranks:
+            got = r[f"mppi_{n}"]
+            np.testing.assert_allclose(got[0], X, **TOL64, err_msg=f"X, {n} samples")
+            np.testing.assert_allclose(got[1], U, **TOL64, err_msg=f"U, {n} samples")
+        # and it regulates (the sampled plan is doing work)
+        assert np.linalg.norm(X[-1]) < 0.3 * np.linalg.norm(data["mppi_x0"])
+
+
+def test_world1_sharded_mppi_equals_one_process(mesh1, data):
+    got, want = trc.mppi_runs(data, mesh1), trc.mppi_runs(data)
+    for n in trc.MPPI_SAMPLES:
+        for g, w in zip(got[f"mppi_{n}"], want[f"mppi_{n}"]):
+            assert np.array_equal(g, w)
 
 
 # --- the rank launcher ----------------------------------------------------------

@@ -168,7 +168,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"sys.path.insert(0, {str(REPO)!r})\n"
         "import bluerov2_dynamics_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 53, names\n"
+        "assert len(names) >= 56, names\n"
         "for m in ('ops.quaternion', 'ops.cuda_quat', 'data.wrench', 'data.csv_loader',\n"
         "          'apps.tank_wrench_comp', 'apps.tank_wrench_quat', 'parallel.mesh',\n"
         "          'parallel.sharded', 'parallel.launch', 'ops.cuda_probes', 'eval.op_counts',\n"
@@ -177,7 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'eval.timing', 'convert', 'models.di', 'models.pinc', 'utils.checkpoint',\n"
         "          'apps.tank_full_comparison', 'apps.tank_rk4', 'models.sysid',\n"
         "          'models.tether', 'ops.implicit', 'apps.demo', 'models.estimation',\n"
-        "          'apps.estimate', 'ops.scan'):\n"
+        "          'apps.estimate', 'ops.scan', 'models.control', 'models.guidance',\n"
+        "          'apps.control_demo'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"

@@ -37,6 +37,13 @@ SYSID_FIT = dict(horizon=3, steps=6, lr=0.05, input_delay=1)
 # particles
 BANK_SIZES = (16, 11)
 BANK_T, BANK_T_PF, BANK_PARTICLES, BANK_SEED = 30, 20, 64, 4
+# MPPI with its sample axis over the ranks (tests/test_parallel.py::
+# test_sharded_mppi_matches_single_device): a 3-state linear plant under
+# tanh inputs, 15 plant steps of an 8-step plan, 64 samples (16 a rank)
+# and 60 (15 a rank)
+MPPI_SAMPLES = (64, 60)
+MPPI_KW = dict(sim_steps=15, horizon=8, sigma=0.2, temperature=0.05, init_rounds=5,
+               replan_rounds=2, u_dim=2, seed=3)
 
 
 def inputs(seed: int = 0) -> dict:
@@ -82,6 +89,10 @@ def inputs(seed: int = 0) -> dict:
     d["bank_U"] = rng.normal(size=(B, BANK_T - 1, 2))
     d["bank_Y"] = rng.normal(size=(B, BANK_T, 2))
     d["bank_m0"] = rng.normal(size=(B, 3))
+    rng = np.random.default_rng(seed + 4)
+    d["mppi_A"] = np.eye(3) * 0.9 + 0.02 * rng.normal(size=(3, 3))
+    d["mppi_B"] = 0.2 * rng.normal(size=(3, 2))
+    d["mppi_x0"] = rng.normal(size=3)
     return d
 
 
@@ -239,6 +250,23 @@ def bank_checks(d, mesh) -> dict:
     return out
 
 
+def mppi_runs(d, mesh=None) -> dict:
+    """``simulate_mppi`` on ``d``'s linear plant at each of MPPI_SAMPLES,
+    with ``mesh`` or in one process: ``(X, U)`` as numpy, keyed
+    ``"mppi_<n>"``."""
+    from bluerov2_dynamics_tpu_torch.models import control
+
+    A, B = torch.as_tensor(d["mppi_A"]), torch.as_tensor(d["mppi_B"])
+    x0 = torch.as_tensor(d["mppi_x0"])
+    out = {}
+    for n in MPPI_SAMPLES:
+        X, U = control.simulate_mppi(lambda x, u: x @ A.T + torch.tanh(u) @ B.T, x0,
+                                     torch.zeros(3, dtype=torch.float64), n_samples=n,
+                                     dtype=torch.float64, device="cpu", mesh=mesh, **MPPI_KW)
+        out[f"mppi_{n}"] = (X.numpy(), U.numpy())
+    return out
+
+
 def _error(fn):
     try:
         fn()
@@ -309,6 +337,7 @@ def all_checks(rank: int, world: int) -> dict:
     out.update(pinc_checks(mesh))
     out["sysid"] = sysid_fits(d, mesh)
     out.update(bank_checks(d, mesh))
+    out.update(mppi_runs(d, mesh))
     return out
 
 
