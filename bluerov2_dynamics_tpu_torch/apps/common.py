@@ -53,9 +53,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     ap.add_argument("--train-split", type=float, default=0.8)
     ap.add_argument("--open-loop-steps", type=int, default=500)
     ap.add_argument("--media-dir", type=str, default="media")
-    ap.add_argument("--no-media", action="store_true",
-                    help="skip animations/figures (required: the port's "
-                         "media come with ROADMAP Queue 1 item 16)")
+    ap.add_argument("--no-media", action="store_true", help="skip animations/figures")
     ap.add_argument("--n-rbfs", type=int, default=500)
     ap.add_argument("--gamma", type=float, default=3.0)
     ap.add_argument("--ridge", type=float, default=1e-1)
@@ -183,15 +181,6 @@ def fit_fossen_from_args(args, X_tr, U_tr, dt, kind: str = "thruster",
         for row_start in range(0, len(cells), 6):
             print("      " + "  ".join(f"{c:<16s}" for c in cells[row_start:row_start + 6]))
     return res, t_fit
-
-
-def require_no_media(args) -> None:
-    """The port's apps render no media yet: without ``--no-media`` they
-    stop here, before any work."""
-    if not args.no_media:
-        raise SystemExit(
-            "the port renders no animations or figures yet: they come with "
-            "ROADMAP Queue 1 item 16 (viz); pass --no-media")
 
 
 def koopman_method(args) -> str:

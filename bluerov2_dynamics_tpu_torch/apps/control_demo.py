@@ -28,8 +28,9 @@ Every loop runs as replays of CUDA graphs on the card
 (``models/control.py``); the printed times are the card's (or the CPU's
 with ``device="cpu"``), on the card including the graphs' capture.  The random draws
 (the Koopman and adaptive tasks' episodes, the LQG noise, the MPPI samples,
-the adaptive dither) come from seeded torch streams, not threefry.  Figures
-wait for ROADMAP Queue 1 item 16: ``--media-dir`` is refused.
+the adaptive dither) come from seeded torch streams, not threefry.
+``--media-dir DIR`` draws the tasks' top views there, named as the JAX
+app names them (:func:`save_figure`).
 
 Usage::
 
@@ -56,6 +57,7 @@ from bluerov2_dynamics_tpu_torch.utils.log import info, ok
 DT = 0.02
 X0_PERTURBED = (0.5, -0.4, 0.3, 0.1, 0.0, 0.6)  # x y z phi theta psi
 MPPI_OBSTACLE = (0.75, 0.0, 0.3)   # (cx, cy, radius) keep-out cylinder
+LOS_FIGURE_RADIUS = 0.15           # the LOS figure's circles, whatever accept_radius ran
 LOS_WAYPOINTS = [[1.5, 0.0, 0.3], [1.5, 1.5, 0.5], [0.0, 1.5, 0.2],
                  [0.0, 0.0, 0.0]]
 # stream tags of the demo's own draws (the episodes, k-means++ seeding, the
@@ -418,12 +420,8 @@ def main(argv=None, device=None):
     ap.add_argument("--steps", type=int, default=600,
                     help="closed-loop steps for the hover tasks")
     ap.add_argument("--media-dir", type=str, default=None,
-                    help="refused: the port renders no figures yet")
+                    help="save a top-view trajectory figure here")
     args = ap.parse_args(argv)
-    if args.media_dir:
-        raise SystemExit(
-            "the port renders no animations or figures yet: they come with "
-            "ROADMAP Queue 1 item 16 (viz); leave out --media-dir")
     device = resolve_device(device)
 
     out = {}
@@ -445,8 +443,66 @@ def main(argv=None, device=None):
         out["lqg"] = run_lqg(device=device)
     if args.task == "los":
         out["los"] = run_los(device=device)
+    if args.media_dir:
+        save_figure(args.task, out, args.media_dir)
     ok("done")
     return out
+
+
+def save_figure(task: str, out: dict, media_dir: str) -> str:
+    """The JAX app's top-view figure of ``task``'s results (host arrays):
+    a single task under its own name, so that a one-task run never
+    overwrites the 3-task ``all`` figure.  The LOS figure draws each
+    waypoint's acceptance circle at a fixed 0.15 m, as the JAX app does,
+    whatever ``accept_radius`` the mission ran with.  Returns the path."""
+    from bluerov2_dynamics_tpu_torch.viz import plot_topdown_with_depth
+
+    obstacles = None
+    if task == "mpc":
+        # MPC's story is the PATH vs the saturated LQR's swing
+        trajs = {"MPC": out["mpc"]["X"], "LQR": out["mpc"]["X_lqr"]}
+        name = "control_demo_mpc_2D.png"
+        title = "Receding-horizon MPC vs saturated LQR from psi=3.0 rad (top view)"
+    elif task == "mppi":
+        trajs = {"MPPI": out["mppi"]["X"], "LQR": out["mppi"]["X_lqr"]}
+        name = "control_demo_mppi_2D.png"
+        title = "MPPI vs obstacle-blind LQR (keep-out disk)"
+        obstacles = [MPPI_OBSTACLE]
+    elif task == "ilqr":
+        trajs = {"TVLQR": out["ilqr"]["X"], "OPEN-LOOP": out["ilqr"]["X_open"],
+                 "PLAN": out["ilqr"]["X_plan"]}
+        name = "control_demo_ilqr_2D.png"
+        title = ("iLQR plan under an unseen current: time-varying "
+                 "gains vs open-loop replay (top view)")
+    elif task == "lqg":
+        trajs = {"LQG": out["lqg"]["X"], "NAIVE": out["lqg"]["X_naive"],
+                 "ORACLE": out["lqg"]["X_oracle"]}
+        name = "control_demo_lqg_2D.png"
+        title = ("Output-feedback LQG (pose-only noisy mocap) vs "
+                 "naive raw-pose feedback (top view)")
+    elif task == "los":
+        trajs = {"LOS": out["los"]["X"]}
+        name = "control_demo_los_2D.png"
+        title = "LOS waypoint mission: lookahead guidance + hover-LQR inner loop (top view)"
+        obstacles = [(wx, wy, LOS_FIGURE_RADIUS) for wx, wy, _ in LOS_WAYPOINTS]
+    elif task == "adaptive":
+        trajs = {"ADAPTIVE": out["adaptive"]["X"], "FROZEN": out["adaptive"]["X_frozen"]}
+        name = "control_demo_adaptive_2D.png"
+        title = ("Adaptive Koopman-LQR vs frozen lifted LQR under "
+                 "thruster damage (top view)")
+    elif task == "all":
+        trajs = {k.upper(): v["X"] for k, v in out.items()}
+        name = "control_demo_2D.png"
+        title = ("Closed-loop control: LQR / Koopman-LQR hover "
+                 "recovery + trajopt waypoint (top view)")
+    else:
+        trajs = {task.upper(): out[task]["X"]}
+        name = f"control_demo_{task}_2D.png"
+        title = f"Closed-loop control: {task} task (top view)"
+    return plot_topdown_with_depth(
+        trajs, dt=DT, seconds=len(next(iter(trajs.values()))) * DT,
+        save_path=f"{media_dir}/{name}", title=title, obstacles=obstacles,
+    )
 
 
 if __name__ == "__main__":

@@ -19,8 +19,10 @@ arguments, checks and JSON record:
    and scores both on the noise-free truth (synthetic data only).
 
 Every step loop runs as replays of CUDA graphs on the card
-(``models/estimation.py``).  Media wait for ROADMAP Queue 1 item 16: the
-app needs ``--no-media``.
+(``models/estimation.py``).  Unless ``--no-media``, a figure of four
+channels (raw, filtered, smoothed; errors against the truth where it is
+known) goes to ``<media-dir>``, named as the JAX app names it
+(:func:`_save_figure`).
 
 Run on the card::
 
@@ -195,6 +197,55 @@ def _wrench_history(cfg, lag, U, use_lag: bool):
     return TAU, seconds
 
 
+DEFAULT_FIG_CHANS = ((2, "z", "m"), (5, "psi", "rad"),
+                     (6, "u", "m/s"), (11, "r", "rad/s"))
+
+
+def _save_figure(path, dt, X, X_filt, X_sm, X_true, diag_text,
+                 seconds=20.0, t0_frac=0.4, chans=DEFAULT_FIG_CHANS):
+    """One panel per channel group on a zoomed window: truth (if
+    available), raw sensor, filtered, smoothed; the filter's consistency
+    diagnostic (``diag_text``: NIS for the Kalman family, ESS for the
+    PF) in the title.  ``chans``: (column, name, unit) per panel.  Host
+    arrays only; matplotlib is imported here, on the Agg backend."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    N = X.shape[0]
+    w = min(int(seconds / max(dt, 1e-9)), N)
+    s = int(t0_frac * (N - w))
+    t = (np.arange(s, s + w) - s) * dt
+    errors = X_true is not None
+    fig, axes = plt.subplots(2, 2, figsize=(10, 6), dpi=150, sharex=True)
+    for ax, (c, name, unit) in zip(axes.ravel(), chans):
+        # with ground truth, plot the ERRORS: the filter's value is
+        # invisible on overlapping traces at mocap noise scales
+        ref = X_true[s:s + w, c] if errors else 0.0
+        ax.plot(t, X[s:s + w, c] - ref, ".", ms=2, color="0.65",
+                label="raw sensor")
+        ax.plot(t, X_filt[s:s + w, c] - ref, lw=1.0, label="filtered")
+        if X_sm is not None:
+            ax.plot(t, X_sm[s:s + w, c] - ref, lw=1.0, ls="--",
+                    label="smoothed")
+        if errors:
+            ax.axhline(0.0, color="k", lw=0.6)
+            ax.set_ylabel(f"{name} error [{unit}]")
+        else:
+            ax.set_ylabel(f"{name} [{unit}]")
+        ax.grid(alpha=0.3)
+    for ax in axes[1]:
+        ax.set_xlabel("t [s]")
+    axes[0, 0].legend(loc="best", fontsize=8)
+    kind = "error vs truth" if errors else "estimates"
+    fig.suptitle(f"State estimation on the recording ({kind}) — "
+                 f"{diag_text}")
+    fig.tight_layout()
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(path)
+    plt.close(fig)
+    ok(f"Wrote estimation figure -> {path}")
+
+
 def _main_quat(args, device):
     """The quat13/wrench contract, filtered by the multiplicative EKF;
     the accuracy table is in the tangent space (position, attitude
@@ -272,6 +323,23 @@ def _main_quat(args, device):
         info("No ground truth available (real CSV) — NIS/loglik are the consistency "
              "diagnostics.")
 
+    if not args.no_media:
+        if X_true is not None:
+            try:
+                _save_figure(
+                    Path(args.media_dir) / "estimate_quat_channels.png",
+                    dt, err(Y), err(res.means),
+                    err(sm.means) if sm is not None else None,
+                    np.zeros((N, 12), np.float32),   # errors around zero
+                    f"mean NIS {nis_mean:.2f} (chi^2 expectation 12)",
+                    chans=((2, "z", "m"), (5, "rotvec-z (yaw)", "rad"),
+                           (6, "u", "m/s"), (11, "r", "rad/s")))
+            except ImportError:
+                warn("matplotlib unavailable — skipping the estimation figure")
+        else:
+            info("estimation figure needs ground truth for the tangent-space error view "
+                 "— skipped on real CSV data")
+
     if args.out_csv:
         _write_csv(args.out_csv, ["t"] + csv_loader.QUAT13_COLS + csv_loader.WRENCH_COLS,
                    np.column_stack([np.asarray(ds.t, np.float64), X_best, _host(TAU)]),
@@ -314,7 +382,6 @@ def _validate(args):
                 raise SystemExit(f"{name} is not supported with --contract quat (this "
                                  f"contract always runs the MEKF; leave --filter at its "
                                  f"default)")
-    common.require_no_media(args)
 
 
 def _inject_outliers(args, X):
@@ -463,6 +530,8 @@ def main(argv=None, device=None):
     res, cold, warm = _timed(run_filter)
     timing = f"warm {warm:.4f} s (cold incl. graph capture {cold:.2f} s)"
     if args.filter == "mhe":
+        diag_text = (f"{args.mhe_meas_loss} MHE, window {args.mhe_window} "
+                     f"x {args.mhe_iters} iters")
         ok(f"MHE ({args.mhe_meas_loss}) over {N} steps: {timing}; final window cost "
            f"{float(res.losses[-1]):.2f}")
         record.update({"mhe_final_cost": float(res.losses[-1]),
@@ -470,15 +539,17 @@ def main(argv=None, device=None):
                        "filter_warm_s": warm, "filter_cold_s": cold})
     elif args.filter == "pf":
         ess_mean = float(torch.mean(res.ess))
+        diag_text = f"mean ESS {ess_mean:.0f}/{args.pf_particles} particles"
         ok(f"PF ({args.pf_particles} particles) over {N} steps: {timing}; loglik "
-           f"{float(res.loglik):.1f}, mean ESS {ess_mean:.0f}/{args.pf_particles} particles")
+           f"{float(res.loglik):.1f}, {diag_text}")
         record.update({"loglik": float(res.loglik), "ess_mean": ess_mean,
                        "n_particles": args.pf_particles,
                        "filter_warm_s": warm, "filter_cold_s": cold})
     else:
         nis_mean = float(torch.mean(res.nis))
+        diag_text = f"mean NIS {nis_mean:.2f} (chi^2 expectation {Y.shape[1]})"
         ok(f"{args.filter.upper()} over {N} steps: {timing}; loglik {float(res.loglik):.1f}, "
-           f"mean NIS {nis_mean:.2f} (chi^2 expectation {Y.shape[1]})")
+           f"{diag_text}")
         record.update({"loglik": float(res.loglik), "nis_mean": nis_mean,
                        "filter_warm_s": warm, "filter_cold_s": cold})
 
@@ -533,6 +604,19 @@ def main(argv=None, device=None):
                                    for k, d in rows_k.items()}
 
     # ---- artifacts --------------------------------------------------------
+    if not args.no_media:
+        try:
+            # non-default filters get their own filename so a ukf/pf/
+            # koopman run never clobbers the EKF figures
+            fig_name = ("estimate_channels"
+                        + ("_pose" if pose_only else "")
+                        + (f"_{args.filter}" if args.filter != "ekf" else "")
+                        + ".png")
+            _save_figure(Path(args.media_dir) / fig_name, dt, X, X_filt,
+                         X_best if sm is not None else None, X_true, diag_text)
+        except ImportError:
+            warn("matplotlib unavailable — skipping the estimation figure")
+
     if args.out_csv:
         _write_csv(args.out_csv, ["t"] + csv_loader.EULER12_COLS + csv_loader.THRUSTER_COLS,
                    np.column_stack([t_stamps, X_best, U]),

@@ -4,11 +4,11 @@ Koopman EDMDc, report multi-step RMSE, roll the model open loop.
 Counterpart of ``bluerov2_dynamics_tpu/apps/sim_koopman.py``: AR(1)-driven
 Euler simulation with sensor noise, 80/20 causal split (the test range
 starts at split-1), Koopman with 200 RBFs / gamma=1 / ridge=1e-3, H =
-1/10/100 endpoint RMSE, a 200-step open-loop rollout.  Media wait for
-ROADMAP Queue 1 item 16: the app needs ``--no-media``.
+1/10/100 endpoint RMSE, a 200-step open-loop rollout, animated into
+``<media-dir>/sim_true_vs_koopman.gif`` unless ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.sim_koopman
---no-media``.
+--media-dir DIR``.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ def main(argv=None, device=None):
             "--extra-csv applies to the tank workloads; the simulation "
             "workload (T1) generates its own dataset and would silently "
             "ignore the extra recordings.")
-    common.require_no_media(args)
     device = resolve_device(device)
 
     t0 = time.perf_counter()
@@ -69,8 +68,19 @@ def main(argv=None, device=None):
         print(f"{H}-step RMSE on test set: {rmses[H]:.4f}")
 
     horizon = min(args.demo_steps, len(test.X) - 1)
-    pred = koopman.simulate(model, X_test[0], U_test[:horizon])
-    return {"pred": pred.double().cpu().numpy(), "true": test.X[:horizon + 1], "rmse": rmses,
+    pred = koopman.simulate(model, X_test[0], U_test[:horizon]).double().cpu().numpy()
+    true = test.X[:horizon + 1]
+    if not args.no_media:
+        from bluerov2_dynamics_tpu_torch.viz import animate_topdown
+
+        animate_topdown(
+            {"TRUE (BlueROV2)": true, "KOOPMAN PREDICTION": pred},
+            dt=args.dt,
+            save_path=f"{args.media_dir}/sim_true_vs_koopman.gif",
+            title="Simulation: True vs. Koopman (top view)",
+            speed=2.0,
+        )
+    return {"pred": pred, "true": true, "rmse": rmses,
             "data_s": data_s, "fit_s": fit_s, "model": model, "train": train, "test": test}
 
 

@@ -10,7 +10,8 @@ configuration; without a checkpoint PINc is trained and saved there, with
 its sidecar.  ``--fossen-fit`` fits the Fossen coefficients to the
 training split (:mod:`..models.sysid`, with the app's integrator) and adds
 a "Fossen (fitted)" row, on the same kernel, and its open-loop rollout.
-Media wait for ROADMAP Queue 1 item 16: the app needs ``--no-media``.
+Unless ``--no-media``, the rollouts are drawn into ``<media-dir>`` as the
+JAX app draws them (:func:`save_media`).
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_full_comparison
 --synthetic --recording --steps 45823 --pinc-ckpt models/pinc_best.msgpack
@@ -163,6 +164,43 @@ def pinc_from_args(args, X_tr, U_tr, dt: float, cfg, lag, device):
     return net, t_pinc
 
 
+def save_media(args, trajs, dt, fit_res) -> None:
+    """The JAX app's figures: the rollouts' GIF, the first 10 s in 2-D
+    (PINc left out), and with ``--fossen-fit`` the fitted coefficient
+    scales.  On a generated pseudo recording the scales' truth is the
+    generator's draws, here :func:`..data.synthetic.recording_coefficient_draws`
+    (a torch stream, so not the JAX package's threefry draws)."""
+    from bluerov2_dynamics_tpu_torch.viz import animate_topdown, plot_topdown_with_depth
+
+    prefix = f"{args.media_dir}/{args.media_prefix}"
+    animate_topdown(
+        trajs, dt=dt,
+        save_path=f"{prefix}tank_true_vs_4models.gif",
+        title="Recorded data: True vs. Koopman / Fossen / DI / PINc",
+    )
+    plot_topdown_with_depth(
+        {k: v for k, v in trajs.items() if "PINc" not in k},
+        dt=dt, seconds=10.0,
+        save_path=f"{prefix}tank_true_vs_4models_2D.png",
+    )
+    if fit_res is not None:
+        from bluerov2_dynamics_tpu_torch.models.sysid import COEFF_NAMES
+        from bluerov2_dynamics_tpu_torch.viz import plot_coefficient_scales
+
+        true_scales = None
+        if (args.synthetic or args.csv is None) and getattr(args, "recording", False):
+            from bluerov2_dynamics_tpu_torch.data.synthetic import recording_coefficient_draws
+
+            true_scales = recording_coefficient_draws(args.seed, args.coeff_jitter)
+        plot_coefficient_scales(
+            np.exp(fit_res.log_scales.double().cpu().numpy()),
+            COEFF_NAMES, true_scales=true_scales,
+            stderr=(None if fit_res.stderr is None
+                    else fit_res.stderr["s"].double().cpu().numpy()),
+            save_path=f"{prefix}fossen_fit_scales.png",
+        )
+
+
 def main(argv=None, device=None):
     """The T6 workload; ``device=None`` means ``cuda``.  Returns the RMSE
     and metric timing tables (``rmse``, ``warm_s``, ``cold_s``: name -> H
@@ -172,7 +210,6 @@ def main(argv=None, device=None):
     and test splits (host float64), and the Fossen fit (``sysid``, None
     without ``--fossen-fit``) with its seconds (``sysid_s``)."""
     args = parser().parse_args(argv)
-    common.require_no_media(args)
     device = resolve_device(device)
 
     t0 = time.perf_counter()
@@ -265,6 +302,8 @@ def main(argv=None, device=None):
              "PINc (ResDNN)": preds["PINc (ResDNN)"]}
     if fit_res is not None:
         trajs["FOSSEN (fitted)"] = preds["Fossen (fitted)"]
+    if not args.no_media:
+        save_media(args, trajs, dt, fit_res)
     ok("done")
     return {"rmse": rmses, "warm_s": times, "cold_s": cold_times, "fit_s": fit_s,
             "rollout_s": rollout_times, "trajs": trajs, "data_s": data_s, "model": model,

@@ -8,8 +8,8 @@ loop over 500 steps.  ``--physics-baseline`` also evaluates the Fossen
 model through the same evaluator (on the card: K2 fused, one launch a
 horizon), and ``--fossen-fit`` fits the Fossen coefficients to the
 training split (:mod:`..models.sysid`) and scores the fitted model through
-it too ("Fossen (fitted)").  Media wait for ROADMAP Queue 1 item 16: the
-app needs ``--no-media``.
+it too ("Fossen (fitted)").  The open-loop rollout is animated into
+``<media-dir>/tank_true_vs_koopman.gif`` unless ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_koopman
 --synthetic --recording --steps 45823 --physics-baseline --no-media``.
@@ -84,7 +84,6 @@ def main(argv=None, device=None):
                          "package's .npz) instead of fitting")
     common.add_sysid_args(ap)
     args = ap.parse_args(argv)
-    common.require_no_media(args)
     device = resolve_device(device)
 
     t0 = time.perf_counter()
@@ -127,8 +126,19 @@ def main(argv=None, device=None):
 
     start, horizon = common.open_loop_window(test.X, args.open_loop_steps)
     pred = koopman.simulate(model, X_test[start], U_test[start:start + horizon])
+    pred = pred.double().cpu().numpy()
+    true = test.X[start:start + horizon + 1]
+    if not args.no_media:
+        from bluerov2_dynamics_tpu_torch.viz import animate_topdown
+
+        animate_topdown(
+            {"TRUE (Recorded)": true, "KOOPMAN": pred},
+            dt=float(ds.dt),
+            save_path=f"{args.media_dir}/tank_true_vs_koopman.gif",
+            title="Tank recording: True vs. Koopman (top view)",
+        )
     ok("done")
-    return {"pred": pred.double().cpu().numpy(), "true": test.X[start:start + horizon + 1],
+    return {"pred": pred, "true": true,
             "rmse": rmses, "warm_s": warm, "cold_s": cold, "fit_s": (t_fit_cold, t_fit),
             "data_s": data_s, "model": model, "train": train, "test": test,
             "sysid": fit_res, "sysid_s": sysid_s}

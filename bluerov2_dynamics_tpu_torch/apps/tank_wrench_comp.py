@@ -9,8 +9,8 @@ wrench-input Fossen model (on the card: K4 fused, one launch a horizon)
 and a learned double integrator, scored by one endpoint evaluator, then
 rolled open loop.  ``--fossen-fit`` fits the wrench model's coefficients
 to the training split (:mod:`..models.sysid`) and adds a "Fossen
-(fitted)" row on the same kernel.  Media wait for ROADMAP Queue 1 item
-16: the app needs ``--no-media``.
+(fitted)" row on the same kernel.  The rollouts are animated into
+``<media-dir>/tank_wrench_comparison.gif`` unless ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_wrench_comp
 --synthetic --recording --steps 45823 --no-media``.
@@ -70,7 +70,6 @@ def main(argv=None, device=None):
     ap = common.base_parser(__doc__)
     common.add_sysid_args(ap)
     args = ap.parse_args(argv)
-    common.require_no_media(args)
     device = resolve_device(device)
     if args.synthetic or args.csv is None:
         ds = common.synthetic_wrench_dataset(args, device)
@@ -111,8 +110,25 @@ def main(argv=None, device=None):
         predK = koopman.simulate(model, x0, U_seq)
         _, predF = rollout(fossen_step, x0, U_seq, include_initial=True)
         _, predD = rollout(di_step, x0, U_seq, include_initial=True)
-    return {"koopman": host(predK), "fossen": host(predF), "di": host(predD),
-            "true": test.X[start:start + horizon + 1], "rmse": rmses, "warm_s": warm,
+    predK, predF, predD = host(predK), host(predF), host(predD)
+    true = test.X[start:start + horizon + 1]
+    if not args.no_media:
+        from bluerov2_dynamics_tpu_torch.viz import animate_topdown
+
+        animate_topdown(
+            {
+                "TRUE (Recorded)": true,
+                "KOOPMAN": predK,
+                "FOSSEN (wrench)": predF,
+                "DOUBLE INTEGRATOR": predD,
+            },
+            dt=dt,
+            save_path=f"{args.media_dir}/tank_wrench_comparison.gif",
+            title="Wrench inputs: True vs. Koopman / Fossen / DI",
+            ncols=2,
+        )
+    return {"koopman": predK, "fossen": predF, "di": predD,
+            "true": true, "rmse": rmses, "warm_s": warm,
             "cold_s": cold, "fit_s": {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di)},
             "model": model, "gains": gains, "train": train, "test": test, "sysid": fit_res,
             "sysid_s": sysid_s}

@@ -10,8 +10,8 @@ after every step (on the card: K5 fused, one launch a horizon), and the
 quaternion double integrator renormalises too; then each rolls open loop.
 ``--fossen-fit`` fits the quat13 wrench model's coefficients to the
 training split (:mod:`..models.sysid`) and adds a "Fossen (fitted)" row on
-the same kernel.  Media wait for ROADMAP Queue 1 item 16: the app needs
-``--no-media``.
+the same kernel.  The rollouts are animated into
+``<media-dir>/tank_wrench_quat_comparison.gif`` unless ``--no-media``.
 
 Run on the card: ``python -m bluerov2_dynamics_tpu_torch.apps.tank_wrench_quat
 --synthetic --recording --steps 45823 --no-media``.
@@ -73,7 +73,6 @@ def main(argv=None, device=None):
     ap = common.base_parser(__doc__)
     common.add_sysid_args(ap)
     args = ap.parse_args(argv)
-    common.require_no_media(args)
     device = resolve_device(device)
     if args.synthetic or args.csv is None:
         ds = common.synthetic_quat_dataset(args, device)
@@ -115,8 +114,25 @@ def main(argv=None, device=None):
         predK = koopman.simulate(model, x0, U_seq)
         _, predF = rollout(fossen_step, x0, U_seq, include_initial=True)
         _, predD = rollout(di_step, x0, U_seq, include_initial=True)
-    return {"koopman": host(predK), "fossen": host(predF), "di": host(predD),
-            "true": test.X[start:start + horizon + 1], "rmse": rmses, "warm_s": warm,
+    predK, predF, predD = host(predK), host(predF), host(predD)
+    true = test.X[start:start + horizon + 1]
+    if not args.no_media:
+        from bluerov2_dynamics_tpu_torch.viz import animate_topdown
+
+        animate_topdown(
+            {
+                "TRUE (Recorded)": true,
+                "KOOPMAN (quat)": predK,
+                "FOSSEN (quat)": predF,
+                "DI (quat)": predD,
+            },
+            dt=dt,
+            save_path=f"{args.media_dir}/tank_wrench_quat_comparison.gif",
+            title="Quaternion state: True vs. Koopman / Fossen / DI",
+            ncols=2,
+        )
+    return {"koopman": predK, "fossen": predF, "di": predD,
+            "true": true, "rmse": rmses, "warm_s": warm,
             "cold_s": cold, "fit_s": {"koopman": (t_koop_cold, t_koop), "di": (t_di_cold, t_di)},
             "model": model, "gains": gains, "train": train, "test": test, "sysid": fit_res,
             "sysid_s": sysid_s}

@@ -10,9 +10,10 @@ drop inf/NaN state rows, zero-fill missing input columns, median dt):
   legacy Euler CSVs converted to quaternions and every quaternion
   renormalised.
 
-``pandas`` is imported only where a file is read (:func:`_read`), so a
-machine without it can import the loaders and the apps and run them on
-generated data.
+A CSV is read with numpy and the standard library (:mod:`.table`), with
+pandas' parser and cleaning semantics reproduced, so the arrays equal the
+JAX package's bit for bit and the loaders run where pandas is absent.
+``pandas`` is imported only to read a ``.parquet`` file.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import List, NamedTuple
 
 import numpy as np
 
+from bluerov2_dynamics_tpu_torch.data import table as tb
 from bluerov2_dynamics_tpu_torch.utils.log import info, warn
 
 EULER12_COLS = ["x", "y", "z", "phi", "theta", "psi", "u", "v", "w", "p", "q", "r"]
@@ -57,42 +59,51 @@ def find_latest_csv(root: Path, name: str) -> Path:
 
 
 def _clean_and_extract(
-    df, state_cols: List[str], input_cols: List[str], verbose: bool
+    df: tb.Table, state_cols: List[str], input_cols: List[str], verbose: bool
 ) -> Dataset:
-    """The shared cleaning pipeline on a ``pandas.DataFrame``."""
+    """The shared cleaning pipeline on a table, pandas' steps in order:
+    sort by ``t`` (``sort_values``), keep each time's first row
+    (``drop_duplicates``), inf to NaN in every numeric column, drop the
+    rows with a NaN state (``dropna``)."""
+    df = dict(df)
     for c in state_cols:
-        if c not in df.columns:
+        if c not in df:
             raise ValueError(f"Missing state column: {c}")
     for c in input_cols:
-        if c not in df.columns:
-            df[c] = 0.0
-    if "t" not in df.columns:
+        if c not in df:
+            df[c] = np.zeros(tb.nrows(df))
+    if "t" not in df:
         raise ValueError("CSV must contain a 't' time column.")
-    df = df.sort_values("t").drop_duplicates(subset="t")
-    df = df.replace([np.inf, -np.inf], np.nan).dropna(subset=state_cols)
+    df = tb.sort_by(df, "t")
+    df = tb.take(df, tb.first_unique(df["t"]))
+    df = {k: (np.where(np.isinf(v), np.nan, v) if v.dtype != object else v)
+          for k, v in df.items()}
+    df = tb.dropna(df, subset=state_cols)
 
-    # np.array(..., copy=True): pandas 3 (copy-on-write) may hand back
-    # read-only views from to_numpy()
-    X = np.array(df[state_cols].to_numpy(float))
-    U = np.array(df[input_cols].to_numpy(float))
-    t = np.array(df["t"].to_numpy(float))
+    as_float = lambda cols: np.stack(  # noqa: E731
+        [np.asarray(df[c], np.float64) for c in cols], axis=1).reshape(tb.nrows(df), len(cols))
+    X = as_float(state_cols)
+    U = as_float(input_cols)
+    t = np.array(df["t"], np.float64)
     dt = float(np.median(np.diff(t))) if len(t) > 1 else 0.05
     if verbose:
         info(
-            f"Samples: {len(df)} | median dt ≈ {dt:.5f}s"
+            f"Samples: {len(t)} | median dt ≈ {dt:.5f}s"
             f" (~{1.0 / max(dt, 1e-9):.2f} Hz)"
         )
     return Dataset(X=X, U=U, t=t, dt=dt)
 
 
-def _read(csv_path, verbose: bool):
-    import pandas as pd
-
+def _read(csv_path, verbose: bool) -> tb.Table:
     if verbose:
         info(f"Loading: {csv_path}")
     if str(csv_path).endswith(".parquet"):
-        return pd.read_parquet(csv_path)
-    return pd.read_csv(csv_path)
+        import pandas as pd
+
+        df = pd.read_parquet(csv_path)
+        return {c: df[c].to_numpy(np.float64) if pd.api.types.is_numeric_dtype(df[c])
+                else df[c].to_numpy(object) for c in df.columns}
+    return tb.read_csv(csv_path)
 
 
 def load_thruster_dataset(csv_path, verbose: bool = True) -> Dataset:
@@ -126,17 +137,17 @@ def load_quat_dataset(csv_path, verbose: bool = True) -> Dataset:
     """13-state quaternion + Fx..Mz contract, with legacy-Euler conversion
     and quaternion renormalisation."""
     df = _read(csv_path, verbose)
-    has_euler = all(c in df.columns for c in ("phi", "theta", "psi"))
-    has_quat = all(c in df.columns for c in ("qw", "qx", "qy", "qz"))
+    has_euler = all(c in df for c in ("phi", "theta", "psi"))
+    has_quat = all(c in df for c in ("qw", "qx", "qy", "qz"))
     if has_euler and not has_quat:
         if verbose:
             warn("Euler angles detected in dataset; converting to quaternions...")
         q = euler_to_quat_np(
-            df["phi"].to_numpy(float),
-            df["theta"].to_numpy(float),
-            df["psi"].to_numpy(float),
+            np.asarray(df["phi"], float),
+            np.asarray(df["theta"], float),
+            np.asarray(df["psi"], float),
         )
-        df[["qw", "qx", "qy", "qz"]] = q
+        df.update({k: q[:, i] for i, k in enumerate(("qw", "qx", "qy", "qz"))})
     ds = _clean_and_extract(df, QUAT13_COLS, WRENCH_COLS, verbose)
     q = ds.X[:, 3:7]
     ds.X[:, 3:7] = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)

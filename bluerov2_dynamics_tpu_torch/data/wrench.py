@@ -6,7 +6,7 @@ normalised body wrench ``W = (E U^T)^T`` from the 6x8 effectiveness matrix
 ``E = [a ; r x a]`` of the BlueROV2-heavy rotor table, axes normalised.
 This table describes the recorded vehicle and differs from the simulator's
 geometry in ``models/params.py``; the T3/T4 apps use this one.
-The CSV augmentation (``augment_csv``) comes with the port's CSV path.
+:func:`augment_csv` turns a thruster CSV into a wrench CSV (no pandas).
 """
 
 from __future__ import annotations
@@ -47,3 +47,58 @@ def effectiveness_matrix(rotors=None, normalize_axes: bool = True) -> np.ndarray
 def thrusters_to_wrench(U: np.ndarray, rotors=None) -> np.ndarray:
     """(N, 8) normalised commands -> (N, 6) normalised body wrench."""
     return U @ effectiveness_matrix(rotors).T
+
+
+def augment_csv(
+    in_path,
+    out_path=None,
+    setpoint_names: bool = False,
+    drop_inputs: bool = True,
+):
+    """Read a thruster CSV, append wrench columns, write ``out_path``.
+
+    Returns the output path.  Actuator columns are ``u1..u8`` if present,
+    else the last eight numeric columns.  Default names are ``Fx..Mz``;
+    ``setpoint_names=True`` writes ``Fx_sp..Tz_sp``.  Only the numeric
+    columns are kept (a column that does not parse as numbers is dropped
+    with a warning); the rest is the JAX package's ``augment_csv``, its
+    output read back equal in float64.
+    """
+    from pathlib import Path
+
+    from bluerov2_dynamics_tpu_torch.data import table as tb
+    from bluerov2_dynamics_tpu_torch.utils.log import info, warn
+
+    in_path = Path(in_path)
+    out_path = Path(out_path) if out_path else in_path.with_name(
+        in_path.stem + "_with_wrench.csv"
+    )
+    df = tb.read_csv(in_path)
+    text = [c for c, v in df.items() if v.dtype == object]
+    if text:
+        warn(f"dropping non-numeric columns: {text}")
+        df = {c: v for c, v in df.items() if v.dtype != object}
+    u_cols = [f"u{i}" for i in range(1, 9)]
+    if not all(c in df for c in u_cols):
+        numeric = list(df)
+        if len(numeric) < 8:
+            raise ValueError("Could not find 8 actuator columns.")
+        u_cols = numeric[-8:]
+    info("Using actuator columns:", u_cols)
+
+    U = np.stack([df[c] for c in u_cols], axis=1).astype(float)
+    if np.nanmax(np.abs(U)) > 1.05:
+        warn("actuator values exceed ~[-1,1]. Proceeding anyway.")
+    W = thrusters_to_wrench(U)
+
+    out = {c: v for c, v in df.items() if not (drop_inputs and c in u_cols)}
+    names = (
+        ["Fx_sp", "Fy_sp", "Fz_sp", "Tx_sp", "Ty_sp", "Tz_sp"]
+        if setpoint_names
+        else ["Fx", "Fy", "Fz", "Mx", "My", "Mz"]
+    )
+    for j, name in enumerate(names):
+        out[name] = W[:, j]
+    tb.write_csv(out_path, out)
+    info("Wrote:", out_path)
+    return out_path

@@ -27,8 +27,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      on the pseudo tank recording (45,823 steps made by the CUDA-graph
      generator, 500 RBFs, the Fossen baseline on K2 fused: one launch a
      call, cold and warm at H = 1, 10, 100), then with ``--koopman-conv``,
-     a 3 x 3 ``--sweep`` and ``--streaming-chunk 1024`` on the same
-     recording; T1 ``apps.sim_koopman.main`` at its defaults (48,000
+     a 3 x 3 ``--sweep`` and ``--streaming-chunk 1024`` on 20,000 steps of
+     the same generator; T1 ``apps.sim_koopman.main`` at its defaults (48,000
      steps, 200 RBFs).  Checked: the generator against its eager loop bit
      for bit over its first two chunks, finite data, the Koopman RMSEs
      against the same port functions in float64 on the host CPU (on the
@@ -41,7 +41,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      ``apps.tank_full_comparison.main`` on the 45,823-step pseudo
      recording with a copy of the committed PINc checkpoint (its sidecar
      honoured), ``--pinc-psi-ssa`` and ``--json-out`` (Koopman, Fossen on
-     K2 Euler, DI, PINc), T5 ``apps.tank_rk4.main`` the same on K2 RK4, T3
+     K2 Euler, DI, PINc), T5 ``apps.tank_rk4.main`` the same on K2 RK4 at
+     20,000 steps, T3
      and T4 (``tank_wrench_comp``, ``tank_wrench_quat``) at 20,000 steps
      on K4 and K5; then PINc trained from scratch at the flagship batch
      (256, rollout 10 x 16) for a few epochs and its checkpoint reloaded
@@ -67,13 +68,30 @@ Phases (any failure raises and ends the run with a non-zero code):
      an eager iteration, the stderrs (and their peak memory); the
      profiler's device events and busy share of an eager iteration and of
      the graph fit;
+   - the host data path (:func:`ingest_runs`): the host libraries and
+     ``g++``, the native CDR decoder's build; the generator on the card at
+     dt 0.01 for 91,658 steps (the real manual bag's 916.58 s) written as a
+     rosbag2 sqlite3 recording of ~183k Odometry and ActuatorMotors
+     messages; ``data.bag2csv`` through its CLI with pandas unimportable
+     (both topics through the native decoder, counted) to the 50 Hz CSV;
+     then T2 (``--physics-baseline``, K2), T6 (the committed PINc, a
+     25-step Fossen fit, K2; its GIF, 2-D and fit-scales figures where
+     matplotlib and PIL exist) on the CSV, T3 and T4 (K4, K5) on 20,000
+     rows of it through ``wrench.augment_csv`` and the quaternion loader.
+     Checked: native = the Python codec bit for bit on 2,000 messages, the
+     CSV's states against a numpy mean of the generator's states in each
+     20 ms bin, ``sanity.run_all``, each Fossen row (and T6's fitted row)
+     against its plain version, each figure's signature and the GIF's frame
+     count.  Timed: the build, decode msgs/s native and Python, read,
+     resample and CSV write, each app, each render;
    - the physics demo (:func:`demo_runs`): ``apps.demo`` ``euler`` and
      ``ode`` at their defaults, ``ode --bdf`` and ``ode --tether`` cut to
      ``--t-end 0.1``, each endpoint against the same port call in float64
      on the host CPU;
    - state estimation (:func:`estimation_runs`), which launches none of
      K1-K8 (the counts are read to show it): ``apps.estimate.main`` on the
-     45,823-row pseudo recording with ``--smooth --fit-noise --fossen-fit
+     pseudo recording (10,000 rows; 45,823 until the ingest phase came)
+     with ``--smooth --fit-noise --fossen-fit
      --refit-koopman`` (EKF, RTS, the noise fit on a 16 x 250 bank, the
      Koopman refit), then each other branch once at a cut length
      (``EST_BRANCHES``).  Checked: the RTS RMSE at least 4x below the raw
@@ -95,7 +113,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      Checked: every CUDA-graph loop (closed loop, trajopt, MPPI, MPC, LQG,
      LOS, iLQR) against its eager loop bit for bit, MPPI's repeat from one
      seed, ``fossen_lqr`` in float32 against float64, the task claims at
-     the JAX package's test thresholds; in phase 6, ``simulate_mppi``
+     the JAX package's test thresholds (``all`` also draws its figure where
+     matplotlib and PIL exist, timed apart); in phase 6, ``simulate_mppi``
      with ``mesh=`` at world 1 against the unsharded call bit for bit.
      Timed: every task; the profiler's launches and busy share of one
      trajopt iteration, one MPPI round and one MPC Adam iteration;
@@ -150,7 +169,7 @@ Phases (any failure raises and ends the run with a non-zero code):
 8. the measured ceilings of K1-K7 from the probes' rates, and the
    measured price of one sinf and one rsqrtf in FMA-tree flops;
 9. a ``koopman apps:``, a ``learned apps:``, a ``demo:``, an
-   ``estimation:`` and a ``control:`` JSON line, one JSON line
+   ``estimation:``, a ``control:`` and an ``ingest:`` JSON line, one JSON line
    ``{"kernels": [...]}``,
    then the last line ``{"ok": true, "device": {...}}``.
 """
@@ -176,20 +195,59 @@ T2_STEPS = 45_823                   # the pseudo tank recording (apps.tank_koopm
 T2_ARGS = ["--synthetic", "--recording", "--steps", str(T2_STEPS), "--physics-baseline",
            "--no-media"]
 T1_ARGS = ["--no-media"]            # apps.sim_koopman at its defaults: 48,000 steps, 200 RBFs
+# T2's --koopman-conv, --sweep and --streaming-chunk runs, each of which
+# generates its own recording: 45,823 steps until the script's time needed
+# headroom on slow hosts
+T2_RERUN_STEPS = 20_000
 SWEEP_ARGS = ["--sweep", "--sweep-gammas", "1", "3", "10", "--sweep-ridges", "1e-3", "1e-2", "1e-1"]
 EAGER_CHUNKS = 2                    # graph chunks held against the eager loop bit for bit
+# the host data path (ingest_runs): a rosbag2 recording the size of the real
+# manual tank bag (916.58 s; 95-110 Hz topics): the generator at dt 0.01 for
+# 91,658 steps, each step an Odometry and an ActuatorMotors message, stamped
+# every 10 ms plus 1-4 ms of jitter from a start that is not a multiple of
+# 20 ms; bag2csv through its CLI to the 50 Hz CSV; T2, T6 (with a short
+# Fossen fit and, where matplotlib and PIL exist, its figures), T3 and T4
+# (on INGEST_T34_ROWS rows of the CSV, as learned_apps cuts them) read it.
+INGEST_STEPS = 91_658
+INGEST_DT = 0.01
+INGEST_T0_NS = 1_762_430_000_123_456_789
+INGEST_PY_MSGS = 20_000             # messages the per-message Python codec is timed on
+INGEST_CHECK_MSGS = 2_000           # messages held native = Python, bit for bit
+INGEST_T34_ROWS = 20_000
+INGEST_FIT = ["--fossen-fit", "--fossen-fit-steps", "25"]
+# the CSV's states against a plain numpy mean of the generator's states in
+# each 20 ms bin: the resample is that mean (pandas' compensated sum; no
+# bin is empty, so none is interpolated); the quaternion round trip of the
+# angles and the sums' order differ at float64 rounding (measured on the
+# card's machine over the 45,829 bins with an exact parse: 8.9e-16), held at
+# 1e-12.  The CSV is read with pandas' default float parser, as csv_loader
+# reads it for T2-T6; that parser is not correctly rounded and returns up to
+# 2e-12 relative off the written value (tests/test_torch_csv_loader.py
+# measures 9.8e-13), so each state is held at 1e-12 + 2e-12 |mean|
+INGEST_STATE_ATOL = 1e-12
+INGEST_PARSE_RTOL = 2e-12
+# the dataset sanity checks (data/sanity.py) on the CSV equal, to float64
+# rounding, the same checks on the numpy bin means and the commands of the
+# bins' first messages, and the z-dot RMSE stays below the JAX package's test
+# bound (tests/test_data.py: 0.05 m/s; its 0.99 correlation is for noiseless
+# data: here the 1e-3 m sensor noise differenced over 20 ms dominates z-dot)
+SANITY_RMSE = 0.05
+SANITY_RTOL = 1e-9
 # the learned-model apps: T6 and T5 on the full pseudo recording with the
 # committed PINc checkpoint (copied to a temporary directory), T3 and T4 at
 # the apps' default 20,000 steps; then PINc training at the flagship batch
 LEARNED_ARGS = ["--synthetic", "--recording", "--steps", str(T2_STEPS), "--no-media",
                 "--pinc-psi-ssa"]
 T34_ARGS = ["--synthetic", "--recording", "--steps", "20000", "--no-media"]
-TRAIN_EPOCHS = 3                    # batch 256, rollout 10 steps x 16 windows
+TRAIN_EPOCHS = 1                    # batch 256, rollout 10 steps x 16 windows (3 until the
+                                    # ingest phase came; cut for the script's time)
 # the differentiable Fossen fit, added to the app runs above (300 Adam steps,
 # horizon 10, input delay 1 on the generated recording: the apps' defaults)
 T2_FIT = ["--fossen-fit"]
 T6_FIT = ["--fossen-fit", "--fossen-fit-stderr", "--fossen-fit-gains", "--fossen-fit-current"]
-T5_FIT = ["--fossen-fit"]
+T5_FIT = ["--fossen-fit", "--fossen-fit-steps", "100"]  # 300 until the ingest phase came
+T5_STEPS = 20_000                   # T5's recording: T6's 45,823 steps until the script's
+                                    # time needed headroom on slow hosts
 T3_FIT = ["--fossen-fit", "--fossen-fit-current"]
 T4_FIT = ["--fossen-fit"]
 FIT_CHECK_STEPS = 20                # the graph fit against the eager loop, at T6's shape
@@ -226,19 +284,25 @@ PINC_FWD_ATOL = 6e-4
 # "all channels" RMSE 6.9x below the raw sensor's): RTS at least 4x below
 # raw, mean NIS in the chi^2_12 band below, the fitted R sigmas within 5%
 # of the generator's.
-EST_STEPS = 45_823
+EST_STEPS = 10_000                  # 45,823 until the ingest phase came, then 20,000 until
+                                    # the script's time needed headroom on slow hosts (the
+                                    # noise fit's window is 4,000 rows either way)
+# the noise fit's Adam iterations cut from the app's 200 to 100 when the
+# ingest phase came (its R starts at the generator's sigmas)
 EST_HEADLINE = ["--synthetic", "--recording", "--steps", str(EST_STEPS), "--smooth",
+                "--fit-noise-steps", "100",
                 "--fit-noise", "--fossen-fit", "--refit-koopman", "--no-media"]
 EST_BASE = ["--synthetic", "--recording", "--no-media"]
-# (b): the app's default is 20,000 rows; cut for time except the lifted
-# filter (one launch-light step); MHE cut from README's 600 rows to 60
+# (b): the app's default is 20,000 rows; cut for time (halved again when
+# the ingest phase came, to keep the script inside its limit); MHE cut
+# from README's 600 rows to 40 (60 until the ingest phase came)
 EST_BRANCHES = (
-    ("pose+smooth", ["--steps", "4000", "--measure", "pose", "--smooth"]),
-    ("ukf", ["--steps", "8000", "--filter", "ukf"]),
-    ("koopman", ["--steps", "20000", "--filter", "koopman"]),
-    ("pf", ["--steps", "8000", "--noise-scale", "25", "--filter", "pf", "--q", "1e-4"]),
-    ("quat+smooth", ["--steps", "3000", "--contract", "quat", "--smooth"]),
-    ("mhe", ["--steps", "60", "--outlier-frac", "0.03", "--filter", "mhe", "--q", "1e-4"]),
+    ("pose+smooth", ["--steps", "2000", "--measure", "pose", "--smooth"]),
+    ("ukf", ["--steps", "4000", "--filter", "ukf"]),
+    ("koopman", ["--steps", "10000", "--filter", "koopman"]),
+    ("pf", ["--steps", "4000", "--noise-scale", "25", "--filter", "pf", "--q", "1e-4"]),
+    ("quat+smooth", ["--steps", "1500", "--contract", "quat", "--smooth"]),
+    ("mhe", ["--steps", "40", "--outlier-frac", "0.03", "--filter", "mhe", "--q", "1e-4"]),
 )
 EST_RTS_GAIN = 4.0
 EST_NIS_BAND = (9.0, 15.0)
@@ -264,7 +328,7 @@ EST_PARTICLES = 1024
 # feedback error against open-loop replay (:479); LOS hits every waypoint
 # (tests/test_guidance.py:171).
 CTRL_TASKS = ("mppi", "ilqr", "lqg", "adaptive", "los")
-CTRL_MPC_STEPS = 10
+CTRL_MPC_STEPS = 5                  # 10 until the ingest phase came
 CTRL_HOVER_END = 1e-2
 CTRL_TRAJOPT = (1e-3, 0.05)
 CTRL_MPPI = (0.9, 0.15)
@@ -519,6 +583,44 @@ def device_busy_share(fn):
           f"({', '.join(n[:60] for n in names)}), busy {busy:.1f} of {wall_us:.1f} us = "
           f"{busy / wall_us:.4f} busy share")
     return busy / wall_us
+
+
+def fossen_vs_plain(app, run, row, plain, X, U) -> dict:
+    """An app's Fossen row ``row`` (a fused kernel) against its plain
+    version on the same card inputs, at each H; returns the relative
+    differences."""
+    from bluerov2_dynamics_tpu_torch.apps import common
+
+    rel = {}
+    for H in H_APP:
+        want = float(common.fused_rmse(lambda X_, U_: plain(X_, U_, H), X, U, H))
+        got = run["rmse"][row][H]
+        close(got, want, TOL["rmse"][0], f"{app} {row} H={H} (kernel vs plain)")
+        rel[H] = abs(got - want) / abs(want)
+    return rel
+
+
+def media_libraries() -> bool:
+    """Whether this machine can draw the apps' figures (matplotlib and PIL)."""
+    import importlib.util
+
+    return all(importlib.util.find_spec(m) is not None for m in ("matplotlib", "PIL"))
+
+
+def media_file(path, frames=None) -> None:
+    """A figure the run wrote: a PNG, or a GIF of ``frames`` frames."""
+    data = path.read_bytes()
+    if path.suffix == ".png":
+        if data[:8] != b"\x89PNG\r\n\x1a\n":
+            fail(f"{path.name} is not a PNG")
+        return
+    from PIL import Image
+
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        fail(f"{path.name} is not a GIF")
+    with Image.open(path) as im:
+        if im.n_frames != frames:
+            fail(f"{path.name}: {im.n_frames} frames, not the {frames} its frame step implies")
 
 
 def fitted_row(app, run, plain_sq, X, U, nominal, card) -> dict:
@@ -796,7 +898,7 @@ def demo_runs(dev, card) -> dict:
 
 def estimation_runs(dev, card) -> dict:
     """State estimation on the card (``apps.estimate.main``): (a) the
-    headline run on the 45,823-row pseudo recording (EKF with exact
+    headline run on EST_STEPS rows of the pseudo recording (EKF with exact
     Jacobians, RTS, the ML noise fit on a 16 x 250 bank, the Fossen fit,
     the Koopman refit), (b) every other branch once, (c) the checks: the
     CUDA-graph step loops against the eager ones bit for bit, float32
@@ -882,8 +984,8 @@ def estimation_runs(dev, card) -> dict:
             print(f"estimation (b) {label} ({' '.join(extra)}): {secs_b:.1f} s, "
                   + json.dumps(entry) + f" [{card}]")
             if label == "mhe":
-                print("estimation (b) mhe: 60 rows, cut from README's 600 for time "
-                      "(41 windows of 20 Adam iterations after the first window's 400)")
+                print("estimation (b) mhe: 40 rows, cut from README's 600 for time "
+                      "(21 windows of 20 Adam iterations after the first window's 400)")
             if not np.isfinite([v for v in entry.values() if isinstance(v, float)]).all():
                 fail(f"estimation (b) {label}: a number is not finite")
             branches[label] = entry
@@ -1083,13 +1185,40 @@ def control_runs(dev, card) -> dict:
         setattr(cd, name, lambda **kw: orig(stats=stats, **kw))
         return orig
 
-    # (a) brov2-control all, at the demo's default sizes
+    # (a) brov2-control all, at the demo's default sizes, with its figure
+    # where matplotlib and PIL exist (drawn after the tasks; timed apart)
+    import shutil
+    import tempfile
+    from pathlib import Path
+
     st_traj = {"keep": True}
     orig = with_stats("run_waypoint", st_traj)
+    media_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_control_")) if media_libraries() else None
+    real_figure, render = cd.save_figure, {}
+
+    def timed_figure(*a, **kw):
+        t = time.perf_counter()
+        path = real_figure(*a, **kw)
+        render["all"] = time.perf_counter() - t
+        return path
+
+    cd.save_figure = timed_figure
     try:
-        res, secs = timed(lambda: cd.main(["all"], device=None))
+        res, secs = timed(lambda: cd.main(
+            ["all"] + (["--media-dir", str(media_dir)] if media_dir else []), device=None))
+        if media_dir:
+            names = sorted(q.name for q in media_dir.iterdir())
+            if names != ["control_demo_2D.png"]:
+                fail(f"control all: figures {names}, not the JAX app's control_demo_2D.png")
+            media_file(media_dir / names[0])
+            print(f"control (a) all: control_demo_2D.png drawn in {render['all']:.2f} s "
+                  f"(inside the task's {secs:.1f} s) [{card}]")
+            out["render_s"] = render["all"]
     finally:
         cd.run_waypoint = orig
+        cd.save_figure = real_figure
+        if media_dir:
+            shutil.rmtree(media_dir, ignore_errors=True)
     hov, koop, way = res["hover"], res["koopman"], res["waypoint"]
     traj_it = traced("one trajopt iteration (250 x 8 plan, 250-step rollout and backward)",
                      st_traj, None)
@@ -1408,7 +1537,8 @@ def koopman_apps(dev, card, drive) -> dict:
     for label, extra in (("conv", ["--koopman-conv"]), ("sweep", SWEEP_ARGS),
                          ("streaming", ["--streaming-chunk", "1024"])):
         r = drive(f"T2 app {label}", ("window_sq",),
-                  lambda: tank_koopman.main(T2_ARGS + extra, device=dev), into={})
+                  lambda: tank_koopman.main(T2_ARGS + ["--steps", str(T2_RERUN_STEPS)] + extra,
+                                            device=dev), into={})
         runs[label] = dict(rmse=r["rmse"]["Koopman"], fit_s=r["fit_s"], data_s=r["data_s"])
         if not all(np.isfinite(v) for v in r["rmse"]["Koopman"].values()):
             fail(f"T2 {label}: a Koopman RMSE is not finite")
@@ -1466,7 +1596,7 @@ def learned_apps(dev, card, drive) -> dict:
 
     from bluerov2_dynamics_tpu_torch import convert
     from bluerov2_dynamics_tpu_torch.apps import (
-        common, tank_full_comparison, tank_rk4, tank_wrench_comp, tank_wrench_quat)
+        tank_full_comparison, tank_rk4, tank_wrench_comp, tank_wrench_quat)
     from bluerov2_dynamics_tpu_torch.eval import metrics
     from bluerov2_dynamics_tpu_torch.eval.timing import profile_calls
     from bluerov2_dynamics_tpu_torch.models import di, pinc
@@ -1494,16 +1624,6 @@ def learned_apps(dev, card, drive) -> dict:
               f"of {wall_us / calls:.1f} us = {share:.4f} busy share [{card}]")
         return dict(events_a_call=len(dev_events) / calls, busy_us=busy / calls,
                     wall_us=wall_us / calls, share=share)
-
-    def fossen_vs_plain(app, run, plain, X, U):
-        """The app's Fossen row (a fused kernel) against its plain version."""
-        rel = {}
-        for H in H_APP:
-            want = float(common.fused_rmse(lambda X_, U_: plain(X_, U_, H), X, U, H))
-            close(run["rmse"][name_of[app]][H], want, TOL["rmse"][0],
-                  f"{app} Fossen row H={H} (kernel vs plain)")
-            rel[H] = abs(run["rmse"][name_of[app]][H] - want) / abs(want)
-        return rel
 
     def di_vs_float64(app, run, variant):
         """The card's DI RMSEs against float64 on the host CPU, the card's gains."""
@@ -1558,7 +1678,8 @@ def learned_apps(dev, card, drive) -> dict:
             if not all(np.isfinite(v) for v in row.values()):
                 fail(f"T6 {name}: an RMSE is not finite: {row}")
         fossen_rel = {"T6": fossen_vs_plain(
-            "T6", t6, lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "euler"),
+            "T6", t6, name_of["T6"],
+            lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "euler"),
             f32(t6["test"].X), f32(t6["test"].U))}
         di_rel = {"T6": di_vs_float64("T6", t6, "euler12")}
         # the fit: its row against the plain version and below the nominal one,
@@ -1616,15 +1737,16 @@ def learned_apps(dev, card, drive) -> dict:
             lambda: pinc.endpoint_rmse(net, X_te, U4_te, DT, H_APP[-1]),
             f"PINc endpoint H={H_APP[-1]} over {len(X_te) - H_APP[-1]} starts")
 
-        # T5: the same recording and checkpoint under RK4 (K2's RK4 form)
+        # T5: T5_STEPS steps of the same generator and the checkpoint under RK4 (K2's RK4 form)
         counts5 = {}
         t5 = drive("T5 app (tank_rk4.main --fossen-fit)", ("window_sq",),
-                   lambda: tank_rk4.main(LEARNED_ARGS + T5_FIT + ["--pinc-ckpt", str(ckpt)],
-                                         device=dev), into=counts5)
+                   lambda: tank_rk4.main(LEARNED_ARGS + ["--steps", str(T5_STEPS)] + T5_FIT
+                                         + ["--pinc-ckpt", str(ckpt)], device=dev), into=counts5)
         if counts5["window_sq"] != 4 * len(H_APP):
             fail(f"T5 app: {counts5['window_sq']} K2 launches, not one a call of the Fossen rows")
         fossen_rel["T5"] = fossen_vs_plain(
-            "T5", t5, lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "rk4"),
+            "T5", t5, name_of["T5"],
+            lambda X, U, H: ce.window_sq_plain(p, cfg, lag, X, U, DT, H, "rk4"),
             f32(t5["test"].X), f32(t5["test"].U))
         res5 = t5["sysid"]
         fits["T5"] = fitted_row("T5", t5, lambda X, U, H: ce.window_sq_plain(
@@ -1654,7 +1776,8 @@ def learned_apps(dev, card, drive) -> dict:
             for name, row in r["rmse"].items():
                 if not all(np.isfinite(v) for v in row.values()):
                     fail(f"{app} {name}: an RMSE is not finite: {row}")
-            fossen_rel[app] = fossen_vs_plain(app, r, plain, f32(r["test"].X), f32(r["test"].U))
+            fossen_rel[app] = fossen_vs_plain(app, r, name_of[app], plain, f32(r["test"].X),
+                                              f32(r["test"].U))
             di_rel[app] = di_vs_float64(app, r, variant)
             runs34[app] = app_entry(r, secs, c[kname])
 
@@ -1715,6 +1838,333 @@ def learned_apps(dev, card, drive) -> dict:
     print(f"T6: {t6_s:.1f} s in all (recording {t6['data_s']:.2f} s); T5 data {t5['data_s']:.2f} "
           f"s; T3 {runs34['T3']['seconds']:.1f} s, T4 {runs34['T4']['seconds']:.1f} s [{card}]")
     return out, fit_ctx
+
+
+def recording_bag(bag_dir, X, U, stamps):
+    """A rosbag2 sqlite3 recording of the generator's states and commands:
+    each row an Odometry (position, the Euler angles as a quaternion, body
+    twists, child frame ``base_link``) and an ActuatorMotors (the 8
+    commands, then 4 NaN), both at ``stamps``.  Returns the messages'
+    blobs by topic."""
+    from bluerov2_dynamics_tpu_torch.data import bag_sqlite, cdr
+    from bluerov2_dynamics_tpu_torch.data.bag2csv import BagTopics
+    from bluerov2_dynamics_tpu_torch.data.csv_loader import euler_to_quat_np
+
+    topics = BagTopics()
+    q = euler_to_quat_np(X[:, 3], X[:, 4], X[:, 5])
+    q_xyzw = np.concatenate([q[:, 1:4], q[:, 0:1]], axis=1).tolist()
+    Xl, nan4 = X.tolist(), [float("nan")] * 4
+    odom = [cdr.encode_odometry(x[0:3], qk, x[6:9], x[9:12], child_frame_id="base_link",
+                                sec=int(ts // 10**9), nanosec=int(ts % 10**9))
+            for x, qk, ts in zip(Xl, q_xyzw, stamps.tolist())]
+    motors = [cdr.encode_actuator_motors(u + nan4, timestamp=int(ts // 1000))
+              for u, ts in zip(U.tolist(), stamps.tolist())]
+    bag_sqlite.write_bag_sqlite(bag_dir, {
+        topics.mocap_odom: ("nav_msgs/msg/Odometry", stamps, odom),
+        topics.px4_motors: ("px4_msgs/msg/ActuatorMotors", stamps, motors)})
+    return {"odom": odom, "motors": motors}
+
+
+def ingest_runs(dev, card, drive) -> dict:
+    """The host data path on the card's machine, end to end: its host
+    libraries and compiler, the native decoder's build; a rosbag2
+    recording of the real manual bag's length written from the generator's
+    states on the card; ``bag2csv`` through its CLI with pandas
+    unimportable, every topic through the native decoder; then T2, T6,
+    T3 and T4 on that CSV, each through ``drive`` (K2, K2, K4, K5) and
+    each Fossen row against its plain version, T6's fitted row too
+    (:func:`fitted_row`); T6's figures where matplotlib and PIL exist.
+    Checked: native = the Python codec bit for bit, the CSV's states
+    against a numpy mean of the generator's states in each 20 ms bin,
+    ``sanity.run_all``, each figure's signature and frame count.  Returns
+    the ``ingest:`` JSON line's numbers."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from bluerov2_dynamics_tpu_torch.apps import (
+        tank_full_comparison, tank_koopman, tank_wrench_comp, tank_wrench_quat)
+    from bluerov2_dynamics_tpu_torch.data import bag2csv, bag_sqlite, cdr, csv_loader
+    from bluerov2_dynamics_tpu_torch.data import native_cdr, sanity
+    from bluerov2_dynamics_tpu_torch.data import table as tb
+    from bluerov2_dynamics_tpu_torch.data.synthetic import generate_tank_recording
+    from bluerov2_dynamics_tpu_torch.data.wrench import augment_csv
+    from bluerov2_dynamics_tpu_torch.models.params import (
+        fossen_params, lag_params, thruster_config)
+    from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
+    from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
+
+    out = {"card": card}
+    # 1. the host side
+    libs = {m: importlib.util.find_spec(m) is not None
+            for m in ("pandas", "matplotlib", "PIL", "pyarrow")}
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    gxx = gxx.stdout.splitlines()[0] if gxx.returncode == 0 and gxx.stdout else "absent"
+    t0 = time.perf_counter()
+    if not native_cdr.available():
+        fail("the native CDR decoder did not build")
+    build_s = time.perf_counter() - t0
+    print(f"ingest host: importable {libs}; g++: {gxx}; native decoder built and loaded in "
+          f"{build_s:.2f} s ({native_cdr.library_path().name})")
+    out.update(host_libraries=libs, gxx=gxx, native_build_s=build_s)
+    media = media_libraries()
+    if not media:
+        print("media: matplotlib or PIL is absent on this machine: the figures are not drawn "
+              "here (the CPU tests hold them); the kernels of this path still run and are "
+              "checked")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ingest_"))
+    saved_pandas = sys.modules.get("pandas", None)
+    try:
+        # 2. the recording, and its bag
+        t0 = time.perf_counter()
+        rec = generate_tank_recording(SEED, n_steps=INGEST_STEPS, dt=INGEST_DT, device=dev)
+        X = rec.X.double().cpu().numpy()
+        U = rec.U.double().cpu().numpy()
+        gen_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 13)
+        jitter = rng.integers(1_000_000, 4_000_000, INGEST_STEPS)
+        jitter[0] = 0
+        stamps = INGEST_T0_NS + np.arange(INGEST_STEPS, dtype=np.int64) * 10_000_000 + jitter
+        t0 = time.perf_counter()
+        bag = tmp / "rosbag2_manual_pseudo"
+        blobs = recording_bag(bag, X, U, stamps)
+        bag_s = time.perf_counter() - t0
+        n_msgs = sum(len(v) for v in blobs.values())
+        bag_mb = sum(f.stat().st_size for f in bag.iterdir()) / 1e6
+        print(f"ingest bag: {INGEST_STEPS} steps generated on the card in {gen_s:.2f} s; "
+              f"{n_msgs} messages ({(stamps[-1] - stamps[0]) / 1e9:.2f} s of recording) written "
+              f"in {bag_s:.2f} s, {bag_mb:.1f} MB")
+        out.update(steps=INGEST_STEPS, messages=n_msgs, bag_mb=bag_mb, generator_s=gen_s,
+                   bag_write_s=bag_s, duration_s=(stamps[-1] - stamps[0]) / 1e9)
+
+        # decode rates: the native batch decoders on every message, the
+        # per-message Python codec on INGEST_PY_MSGS (best of 3, as bench.py)
+        def best_of(fn, reps=3):
+            best = float("inf")
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                best = min(best, time.perf_counter() - t)
+            return best
+
+        t_nat = best_of(lambda: (native_cdr.decode_odometry_batch(blobs["odom"]),
+                                 native_cdr.decode_actuator_motors_batch(blobs["motors"])))
+        half = INGEST_PY_MSGS // 2
+        t_py = best_of(lambda: ([cdr.decode_odometry(b) for b in blobs["odom"][:half]],
+                                [cdr.decode_actuator_motors(b) for b in blobs["motors"][:half]]))
+        rates = {"native": n_msgs / t_nat, "python": 2 * half / t_py}
+        print(f"ingest decode: native {rates['native']:.4g} msgs/s ({n_msgs} messages), "
+              f"Python codec {rates['python']:.4g} msgs/s ({2 * half} messages), "
+              f"{rates['native'] / rates['python']:.1f}x")
+        out["decode_msgs_per_s"] = rates
+        # native = the Python codec, bit for bit
+        k = INGEST_CHECK_MSGS // 2
+        f_nat, flags = native_cdr.decode_odometry_batch(blobs["odom"][:k])
+        f_py = np.array([[m.pose.pose.position.x, m.pose.pose.position.y, m.pose.pose.position.z,
+                          m.pose.pose.orientation.x, m.pose.pose.orientation.y,
+                          m.pose.pose.orientation.z, m.pose.pose.orientation.w,
+                          m.twist.twist.linear.x, m.twist.twist.linear.y,
+                          m.twist.twist.linear.z, m.twist.twist.angular.x,
+                          m.twist.twist.angular.y, m.twist.twist.angular.z]
+                         for m in map(cdr.decode_odometry, blobs["odom"][:k])])
+        m_nat = native_cdr.decode_actuator_motors_batch(blobs["motors"][:k])
+        m_py = np.array([cdr.decode_actuator_motors(b).control[:8]
+                         for b in blobs["motors"][:k]], np.float32)
+        if not (np.array_equal(f_nat.view(np.int64), f_py.view(np.int64)) and flags.all()
+                and np.array_equal(m_nat.view(np.int32), m_py.view(np.int32))):
+            fail(f"native and Python decoding differ on the first {2 * k} messages")
+        print(f"ingest decode: native = Python codec bit for bit on {2 * k} messages")
+
+        # 3. bag2csv through its CLI, pandas unimportable
+        # each stage timed by wrapping the module function convert calls
+        sys.modules["pandas"] = None
+        bag_sqlite.ROUTES.clear()
+        timings = {}
+
+        def timed(mod, attr, key):
+            real = getattr(mod, attr)
+
+            def run(*a, **kw):
+                t = time.perf_counter()
+                r = real(*a, **kw)
+                timings[key] = time.perf_counter() - t
+                return r
+            return real, run
+
+        stages = {(bag_sqlite, "read_bag_sqlite"): "read",
+                  (bag2csv, "resample_and_join"): "resample", (tb, "write_csv"): "write_csv"}
+        reals = {}
+        for (mod, attr), key in stages.items():
+            reals[mod, attr], run = timed(mod, attr, key)
+            setattr(mod, attr, run)
+        try:
+            t0 = time.perf_counter()
+            csv = bag2csv.main([str(bag), "--out", str(tmp / "koopman_dataset_50Hz")])
+            cli_s = time.perf_counter() - t0
+        finally:
+            for (mod, attr), real in reals.items():
+                setattr(mod, attr, real)
+        routes = dict(bag_sqlite.ROUTES)
+        got = tb.read_csv(csv)   # as csv_loader reads it for T2-T6
+        rows = tb.nrows(got)
+        want_routes = {(t, "native"): INGEST_STEPS for t in (bag2csv.BagTopics().mocap_odom,
+                                                             bag2csv.BagTopics().px4_motors)}
+        if routes != want_routes:
+            fail(f"bag2csv: decode routes {routes}, not the native decoder for both topics")
+        print(f"ingest bag2csv (CLI, pandas unimportable): {cli_s:.2f} s in all, read and decode "
+              f"{timings['read']:.2f} s, resample and join {timings['resample']:.2f} s, CSV write "
+              f"{timings['write_csv']:.2f} s; {rows} rows; routes {routes} [{card}]")
+        out.update(bag2csv_s=cli_s, read_s=timings["read"], resample_s=timings["resample"],
+                   write_csv_s=timings["write_csv"], rows=rows,
+                   routes={f"{t} {r}": n for (t, r), n in routes.items()})
+
+        # the CSV's states against a plain mean of the generator's states a bin
+        if list(got) != ["t"] + bag2csv.STATE_COLS + bag2csv.ACT_COLS:
+            fail(f"bag2csv: columns {list(got)}")
+        ref = X.copy()
+        ref[:, 3:6] = np.unwrap(np.arctan2(np.sin(X[:, 3:6]), np.cos(X[:, 3:6])), axis=0)
+        b = (stamps - stamps[0]) // 20_000_000
+        counts = np.bincount(b)
+        mean = np.stack([np.bincount(b, weights=ref[:, j]) for j in range(12)], axis=1)
+        mean /= counts[:, None]
+        states = np.stack([got[c] for c in bag2csv.STATE_COLS], axis=1)
+        if states.shape != mean.shape or not (counts > 0).all():
+            fail(f"bag2csv: {states.shape} states against {mean.shape} bins")
+        state_err = float(np.max(np.abs(states - mean)))
+        state_excess = float(np.max(np.abs(states - mean) - INGEST_PARSE_RTOL * np.abs(mean)))
+        t_err = float(np.max(np.abs(got["t"] - np.arange(len(counts)) * 0.02)))
+        # each bin's commands: its first message's, the nearest to the bin start
+        acts = np.stack([got[c] for c in bag2csv.ACT_COLS], axis=1)
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        want_acts = np.clip(U[first], -1.0, 1.0)
+        acts_excess = float(np.max(np.abs(acts - want_acts) - INGEST_PARSE_RTOL * np.abs(want_acts)))
+        print(f"ingest CSV: {len(counts)} rows of 20 ms bins ({counts.min()}-{counts.max()} "
+              f"messages each); max |CSV state - numpy bin mean| {state_err:.3e}, less "
+              f"{INGEST_PARSE_RTOL:g} |mean|: {state_excess:.3e} (atol {INGEST_STATE_ATOL:g}); "
+              f"max |t - 0.02 k| {t_err:.3e}; commands against each bin's first message's, "
+              f"less {INGEST_PARSE_RTOL:g} |command|: {acts_excess:.3e} (held at 0)")
+        if not (state_excess <= INGEST_STATE_ATOL and t_err < 1e-9 and acts_excess <= 0):
+            fail("bag2csv: the CSV is not the binned recording")
+        ds = csv_loader.load_thruster_dataset(csv, verbose=False)
+        checks = sanity.run_all(ds, verbose=False)
+        want = sanity.run_all(csv_loader.Dataset(X=mean, U=acts, t=ds.t, dt=ds.dt), verbose=False)
+        kin = checks["kinematic"]
+        print(f"ingest sanity: z-dot RMSE {kin['rmse']:.4f} m/s (bound {SANITY_RMSE}), "
+              f"correlation {kin['corr']:.4f}, on the bin means {want['kinematic']}; "
+              f"buoyancy drift {checks['buoyancy_drift']}")
+        near = lambda a, b: abs(a - b) <= SANITY_RTOL * abs(b)  # noqa: E731
+        if not (kin["rmse"] < SANITY_RMSE
+                and all(near(kin[k], want["kinematic"][k]) for k in kin)
+                and np.allclose(checks["actuator_corrs"], want["actuator_corrs"], rtol=SANITY_RTOL,
+                                atol=0)):
+            fail(f"sanity.run_all on the CSV {checks} against the bin means {want}")
+        out.update(state_max_abs_err=state_err, sanity=kin, dt=ds.dt)
+        sys.modules.pop("pandas")
+        if saved_pandas is not None:
+            sys.modules["pandas"] = saved_pandas
+
+        # 4. the apps on the CSV (and its wrench augmentation), each kernel launched
+        dt = ds.dt
+        p, cfg, lag = fossen_params(device=dev), thruster_config(device=dev), lag_params(
+            dt, device=dev)
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        rel, launches, secs = {}, {}, {}
+
+        def app_run(name, kernel, main, argv):
+            c = {}
+            t = time.perf_counter()
+            r = drive(f"{name} on the bag's CSV", (kernel,), lambda: main(argv, device=dev),
+                      into=c)
+            secs[name], launches[name] = time.perf_counter() - t, c[kernel]
+            for row, vals in r["rmse"].items():
+                if not all(np.isfinite(v) for v in vals.values()):
+                    fail(f"{name} on the bag's CSV: {row} RMSE not finite: {vals}")
+            return r
+
+        t2 = app_run("T2", "window_sq", tank_koopman.main,
+                     ["--csv", str(csv), "--physics-baseline", "--no-media"])
+        if launches["T2"] != 2 * len(H_APP):
+            fail(f"T2 on the bag's CSV: {launches['T2']} K2 launches")
+        rel["T2"] = fossen_vs_plain("T2 (bag)", t2, "Fossen (BlueROV2)", lambda X_, U_, H: (
+            ce.window_sq_plain(p, cfg, lag, X_, U_, dt, H, "euler")), f32(t2["test"].X),
+            f32(t2["test"].U))
+
+        models = Path(__file__).resolve().parent / "models"
+        for name in ("pinc_best.msgpack", "pinc_best.msgpack.json"):
+            shutil.copy(models / name, tmp / name)
+        media_dir = tmp / "media"
+        render = {}
+        real_save = tank_full_comparison.save_media
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            real_save(*a, **kw)
+            render["T6"] = time.perf_counter() - t
+
+        tank_full_comparison.save_media = timed_save
+        try:
+            t6 = app_run("T6", "window_sq", tank_full_comparison.main,
+                         ["--csv", str(csv), "--pinc-ckpt", str(tmp / "pinc_best.msgpack"),
+                          "--pinc-psi-ssa", *INGEST_FIT]
+                         + (["--media-dir", str(media_dir)] if media else ["--no-media"]))
+        finally:
+            tank_full_comparison.save_media = real_save
+        if launches["T6"] != 4 * len(H_APP):
+            fail(f"T6 on the bag's CSV: {launches['T6']} K2 launches")
+        rel["T6"] = fossen_vs_plain("T6 (bag)", t6, "Fossen (BlueROV2)", lambda X_, U_, H: (
+            ce.window_sq_plain(p, cfg, lag, X_, U_, dt, H, "euler")), f32(t6["test"].X),
+            f32(t6["test"].U))
+        res6 = t6["sysid"]
+        out["T6_fit"] = fitted_row("T6 (bag)", t6, lambda X_, U_, H: ce.window_sq_plain(
+            res6.params, res6.cfg, lag, X_, U_, dt, H, "euler"), f32(t6["test"].X),
+            f32(t6["test"].U), "Fossen (BlueROV2)", card)
+
+        # T3 and T4 on INGEST_T34_ROWS rows of the CSV, augmented with the wrench
+        cut = tb.write_csv(tmp / "cut.csv", tb.take(got, slice(0, INGEST_T34_ROWS)))
+        wrench_csv = augment_csv(cut, tmp / "cut_with_wrench.csv")
+        t3 = app_run("T3", "window_sq_wrench", tank_wrench_comp.main,
+                     ["--csv", str(wrench_csv), "--no-media"])
+        t4 = app_run("T4", "window_sq_quat", tank_wrench_quat.main,
+                     ["--csv", str(wrench_csv), "--no-media"])
+        for name, r, row, plain in (
+                ("T3", t3, "Fossen (wrench)", ce.window_sq_wrench_plain),
+                ("T4", t4, "Fossen (quat)", cq.window_sq_quat_plain)):
+            if launches[name] != 2 * len(H_APP):
+                fail(f"{name} on the bag's CSV: {launches[name]} launches")
+            rel[name] = fossen_vs_plain(f"{name} (bag)", r, row, lambda X_, U_, H, plain=plain: (
+                plain(p, X_, U_, dt, H, "euler")), f32(r["test"].X), f32(r["test"].U))
+        print(f"ingest apps on the CSV: T2 {secs['T2']:.1f} s, T6 {secs['T6']:.1f} s (its "
+              f"{INGEST_FIT[-1]}-step fit {t6['sysid_s']:.2f} s), T3 {secs['T3']:.1f} s, T4 "
+              f"{secs['T4']:.1f} s; launches {launches} [{card}]")
+        out.update(app_s=secs, launches=launches, fossen_rel_vs_plain=rel,
+                   rmse={n: r["rmse"] for n, r in (("T2", t2), ("T6", t6), ("T3", t3),
+                                                   ("T4", t4))})
+
+        # 5. T6's figures: the GIF of the open-loop window, the 2-D figure, the scales
+        if media:
+            T = len(t6["trajs"]["TRUE (Recorded)"])
+            fps = int(round(1.0 / dt))
+            frames = len(range(0, T, max(1, -(-fps // 50))))
+            names = sorted(q.name for q in media_dir.iterdir())
+            want = ["fossen_fit_scales.png", "tank_true_vs_4models.gif",
+                    "tank_true_vs_4models_2D.png"]
+            if names != want:
+                fail(f"T6 media: {names}, not {want}")
+            for n in names:
+                media_file(media_dir / n, frames)
+            print(f"ingest media: T6's {', '.join(names)} in {render['T6']:.2f} s (a "
+                  f"{frames}-frame GIF) [{card}]")
+            out["render_s"] = {"T6": render["T6"]}
+            out["gif_frames"] = frames
+    finally:
+        if sys.modules.get("pandas", 0) is None:
+            sys.modules.pop("pandas")
+            if saved_pandas is not None:
+                sys.modules["pandas"] = saved_pandas
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> None:
@@ -1794,12 +2244,28 @@ def main() -> None:
         into.update(counts)
         return out
 
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(name):
+        """The host seconds since the previous mark, as phase ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+
+    mark("build")
     # the Koopman apps T2 and T1 at full size
     apps = koopman_apps(dev, card, drive)
+    mark("koopman_apps")
     # the learned-model apps T6, T5, T3 and T4 with their Fossen fits, and PINc training
     learned, fit_ctx = learned_apps(dev, card, drive)
+    mark("learned_apps")
+    # the host data path: a rosbag2 recording -> bag2csv -> T2, T6, T3, T4 and figures
+    ingest = ingest_runs(dev, card, drive)
+    mark("ingest_runs")
     # the physics demo
     demos = demo_runs(dev, card)
+    mark("demo_runs")
     # state estimation (launches none of K1-K8: the counts are read to show it)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -1807,19 +2273,35 @@ def main() -> None:
     torch.cuda.synchronize()
     estimation["launches"] = dict(_build.launches)
     print(f"estimation: launches {estimation['launches']}")
+    mark("estimation_runs")
     # control and guidance (launches none of K1-K8: the counts are read to show it)
     _build.reset_launch_counts()
     ctrl = control_runs(dev, card)
     torch.cuda.synchronize()
     ctrl["launches"] = dict(_build.launches)
     print(f"control: launches {ctrl['launches']}")
+    mark("control_runs")
 
-    # the recording: the port's own simulator on the card, plus sensor noise
+    # the recording: the port's own simulator on the card, plus sensor noise;
+    # its step loop replayed from CUDA graphs (ops/scan.py), held against
+    # the eager rollout bit for bit over the first graph chunk
+    from bluerov2_dynamics_tpu_torch.ops.scan import GRAPH_CHUNK, scan
+
     t0 = time.perf_counter()
     U_rec = torch.from_numpy(ar1_commands(rng, N_REC)).to(dev)
     x_start = torch.zeros(12, device=dev)
     x_start[2] = 1.0
-    X_true = fossen.simulate_thruster(p, cfg, lag, x_start, U_rec, DT, "euler")[:-1]
+    rec_step = fossen.make_thruster_step(p, cfg, lag, DT, "euler")
+
+    def rec_body(carry, xs):
+        x, z = rec_step(carry, xs[0])
+        return (x, z), (x,)
+
+    (X_steps,) = scan(rec_body, (x_start, torch.zeros(8, 3, device=dev)), (U_rec,), graph=True)
+    X_true = torch.cat([x_start[None], X_steps])[:-1]
+    eager = fossen.simulate_thruster(p, cfg, lag, x_start, U_rec[:GRAPH_CHUNK], DT, "euler")
+    if not torch.equal(eager, torch.cat([x_start[None], X_steps[:GRAPH_CHUNK]])):
+        fail("the recording's graph loop differs from the eager rollout")
     noise = torch.from_numpy((1e-3 * rng.normal(size=(N_REC, 12))).astype(np.float32)).to(dev)
     X_rec = (X_true + noise).contiguous()
     if not torch.isfinite(X_rec).all():
@@ -1886,6 +2368,7 @@ def main() -> None:
         if out.shape != shape or not torch.isfinite(out).all():
             fail(f"{name} output is not finite {shape}")
 
+    mark("recording and main paths")
     # 4. checks -------------------------------------------------------------------
     # the full recording's start count: random windows of every input contract
     N = N_LARGE + H_APP[-1]
@@ -2059,6 +2542,7 @@ def main() -> None:
             "batched_rollout")
     print("small inputs agree with the plain versions on the host CPU")
 
+    mark("checks")
     # 5. timing -------------------------------------------------------------------
     ms, plain_ms, bounds, shapes = {}, {}, {}, {}
     # K1 as the main path launches it (the prologue inside), and the K1
@@ -2208,6 +2692,7 @@ def main() -> None:
               f"{e['unfused']['min']:.4f} / {e['unfused']['median']:.4f} / "
               f"{e['unfused']['max']:.4f} ms ({REPEATS} repeats of {CALLS} calls, in turns)")
 
+    mark("timing")
     # 6. K7: the sharded window evaluators, world 1 -------------------------------
     m_blk = N_LARGE // K7_BLOCKS
     k7 = {  # name: (fused per-rank kernel, its endpoint form, sharded wrapper, fused and
@@ -2324,6 +2809,7 @@ def main() -> None:
     finally:
         dist.destroy_process_group()
 
+    mark("K7")
     # 7. K8: the ceiling probes -------------------------------------------------------
     def clocks():
         return subprocess.run(
@@ -2432,6 +2918,7 @@ def main() -> None:
             if not ok(loop, total):
                 fail(f"SASS of {fns[0]}: the loop body does not hold the probe's work")
 
+    mark("K8")
     # 8. ceilings from the measured rates ----------------------------------------------
     tree = rates["fma_tree_peak"][0]
     sin_rate = rates["transcendental_peak"][0]
@@ -2473,7 +2960,9 @@ def main() -> None:
               + ("  (FASTER than the additive ceiling)" if ms[name] < c else ""))
     for name, c in ceiling_large.items():
         large[name]["ceiling_ms"] = c
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device query")
+    mark("ceilings")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device query; phases "
+          + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
 
     # 9. results ------------------------------------------------------------------
     src = "bluerov2_dynamics_tpu_torch/csrc/"
@@ -2579,6 +3068,7 @@ def main() -> None:
     print("demo: " + json.dumps(demos, default=float))
     print("estimation: " + json.dumps(estimation, default=float))
     print("control: " + json.dumps(ctrl, default=float))
+    print("ingest: " + json.dumps(ingest, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -9,7 +9,9 @@ tasks without a trim (trajopt, iLQR and its executions) at atol 1e-5
 1e-2 on commands (measured 4.4e-4 and 2.3e-3), since both fly
 ``fossen_lqr``'s gains, whose float32 trim (400 Adam steps) wanders at
 float32's floor and lands 7e-4 from the JAX package's; waypoint indices,
-hit steps and flags exactly.  Also the refusal of ``--media-dir``.
+hit steps and flags exactly.  Also ``--media-dir``, which renders the
+hover task's figure before the work ends (it was refused before the port
+had its figures).
 """
 
 import numpy as np
@@ -45,6 +47,8 @@ def test_task_returns_the_jax_apps_dict(task):
         np.testing.assert_allclose(g.astype(float), w.astype(float), err_msg=k, **tol)
 
 
-def test_media_dir_is_refused_before_any_work():
-    with pytest.raises(SystemExit, match="item 16"):
-        demo.main(["hover", "--media-dir", "media"], device="cpu")
+def test_media_dir_is_refused_before_any_work(tmp_path):
+    """``--media-dir`` is no longer refused: it writes the task's figure
+    under the JAX app's name."""
+    demo.main(["hover", "--steps", "50", "--media-dir", str(tmp_path)], device="cpu")
+    assert [p.name for p in tmp_path.iterdir()] == ["control_demo_hover_2D.png"]

@@ -137,3 +137,43 @@ def test_importing_the_loaders_does_not_import_pandas():
                          timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_loaders_run_with_pandas_blocked(tmp_path, rng, monkeypatch):
+    """All three column contracts load with ``pandas`` unimportable, and
+    give the JAX loaders' arrays (pandas') bit for bit."""
+    paths = {"thruster": tmp_path / "u.csv", "wrench": tmp_path / "w.csv",
+             "quat": tmp_path / "q.csv", "legacy": tmp_path / "e.csv"}
+    _write(paths["thruster"], rng, shuffle=True, with_nan=True, dup=True)
+    _write(paths["wrench"], rng, inputs=jcsv.WRENCH_COLS, with_nan=True)
+    _write(paths["quat"], rng, inputs=jcsv.WRENCH_COLS, state=jcsv.QUAT13_COLS)
+    _write(paths["legacy"], rng, inputs=jcsv.WRENCH_COLS)
+    loader = {"thruster": "load_thruster_dataset", "wrench": "load_wrench_dataset",
+              "quat": "load_quat_dataset", "legacy": "load_quat_dataset"}
+    want = {k: getattr(jcsv, loader[k])(p, verbose=False) for k, p in paths.items()}
+    monkeypatch.setitem(sys.modules, "pandas", None)
+    with pytest.raises(ImportError):
+        import pandas  # noqa: F401
+    for k, p in paths.items():
+        _same(getattr(tcsv, loader[k])(p, verbose=False), want[k])
+
+
+def test_values_parse_as_pandas_default_parser_does(tmp_path, rng):
+    """pandas' default float converter is not correctly rounded: on
+    17-digit values written by ``repr`` it returns another double for a
+    large share of them, up to ~1e-12 relative away (measured: 9.8e-13 at
+    |x| in [1e-6, 1); bound 2e-12).  The port's reader reproduces that
+    converter bit for bit, so its loaders equal the JAX package's."""
+    from bluerov2_dynamics_tpu_torch.data import table as tb
+
+    a = rng.normal(size=20000) * 10.0 ** rng.uniform(-8, 4, 20000)
+    a[:4] = [0.05029208843735732, -0.0, 1e-320, 123456789012345678.0]
+    path = tmp_path / "v.csv"
+    path.write_text("a,n\n" + "".join(f"{x!r},{i}\n" for i, x in enumerate(a.tolist())))
+    pandas_default = pd.read_csv(path)["a"].to_numpy()
+    got = tb.read_csv(path)
+    np.testing.assert_array_equal(got["a"].view(np.int64), pandas_default.view(np.int64))
+    np.testing.assert_array_equal(got["n"], np.arange(len(a)))
+    off = pandas_default != a
+    rel = np.abs(pandas_default - a)[off] / np.abs(a[off])
+    assert off.mean() > 0.1 and rel.max() < 2e-12

@@ -206,8 +206,10 @@ def test_t3_t4_synthetic_branches_and_guards(tmp_path):
         assert out["test"].X.shape == (80, n) and out["test"].U.shape == (80, 6)
         for row in out["rmse"].values():     # 80 test rows: H = 100 is past the data
             assert np.isfinite([row[1], row[10]]).all() and np.isnan(row[100])
-    with pytest.raises(SystemExit):
-        tt3.main(["--synthetic", "--steps", "400"], device="cpu")      # media need --no-media
+    media = tmp_path / "media"                                    # media render now
+    tt3.main(small[:3] + ["--n-rbfs", "8", "--open-loop-steps", "5", "--media-dir", str(media)],
+             device="cpu")
+    assert [p.name for p in media.iterdir()] == ["tank_wrench_comparison.gif"]
     with pytest.raises(SystemExit):
         tt6.main(small + ["--pinc-ckpt", str(tmp_path / "missing.pt")], device="cpu")
     with pytest.raises(SystemExit, match="only 1 devices"):

@@ -160,15 +160,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of the port and ``chip_smoke.py`` in a fresh
     interpreter and check ``sys.modules`` by exact name: the port's own
     name starts with the JAX package's, so a prefix test would be wrong.
-    ``pandas`` must not be imported either: the card's machine has none,
-    and the loaders import it only where they read a file; nor ``optax``
-    or ``msgpack``, which the learned models and checkpoints replace."""
+    ``pandas`` must not be imported either: the data path reads CSVs and
+    bags without it (pandas only for a ``.parquet`` file), so it runs on a
+    machine that lacks it; nor ``optax`` or ``msgpack``, which the learned
+    models and checkpoints replace; nor ``matplotlib``, ``PIL`` or
+    ``rosbags``, which the figures and the optional bag reader import only
+    inside the functions that use them."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
         "import bluerov2_dynamics_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 56, names\n"
+        "assert len(names) >= 72, names\n"
         "for m in ('ops.quaternion', 'ops.cuda_quat', 'data.wrench', 'data.csv_loader',\n"
         "          'apps.tank_wrench_comp', 'apps.tank_wrench_quat', 'parallel.mesh',\n"
         "          'parallel.sharded', 'parallel.launch', 'ops.cuda_probes', 'eval.op_counts',\n"
@@ -178,14 +181,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'apps.tank_full_comparison', 'apps.tank_rk4', 'models.sysid',\n"
         "          'models.tether', 'ops.implicit', 'apps.demo', 'models.estimation',\n"
         "          'apps.estimate', 'ops.scan', 'models.control', 'models.guidance',\n"
-        "          'apps.control_demo'):\n"
+        "          'apps.control_demo', 'data.cdr', 'data.px4_msgs', 'data.typesys',\n"
+        "          'data.native_cdr', 'data.bagmeta', 'data.bag2csv', 'data.bag_sqlite',\n"
+        "          'data.frames', 'data.sanity', 'data.xlsx', 'data.t200', 'data.table',\n"
+        "          'utils.profiling', 'viz', 'viz.animate', 'viz.plots'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "def banned(m):\n"
         "    return any(m == b or m.startswith(b + '.') for b in\n"
         "               ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'bench',\n"
-        "                'bluerov2_dynamics_tpu', 'pandas'))\n"
+        "                'bluerov2_dynamics_tpu', 'pandas', 'matplotlib', 'PIL',\n"
+        "                'rosbags'))\n"
         "print(sorted(m for m in sys.modules if banned(m)))\n"
     )
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
