@@ -21,6 +21,7 @@ import torch
 from bluerov2_dynamics_tpu_torch.data import csv_loader
 from bluerov2_dynamics_tpu_torch.eval.timing import time_fn_cold_warm
 from bluerov2_dynamics_tpu_torch.utils.log import info, ok
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 HORIZONS = (1, 10, 100)
 
@@ -453,9 +454,12 @@ def summarize_fit(name: str, cold_seconds: float, warm_seconds: float = None):
 def fused_rmse(sq_fn: Callable, X, U, H: int):
     """Endpoint RMSE from a fused window evaluator (``make_endpoint_sq_cuda*``:
     ``(X, U) ->`` the squared endpoint error summed over the ``N - H``
-    starts): ``sqrt(sq / ((N - H) n))``."""
+    starts): ``sqrt(sq / ((N - H) n))``.  The span ``brov2.wrapper.rmse``
+    holds the divide and sqrt alone; the launch has its own span."""
     N, n = X.shape
-    return torch.sqrt(sq_fn(X, U) / ((N - H) * n))
+    sq = sq_fn(X, U)
+    with span("brov2.wrapper.rmse"):
+        return torch.sqrt(sq / ((N - H) * n))
 
 
 def endpoint_evaluator_with_kernel(X_test, U_test, build_kernel: Callable,
@@ -466,18 +470,19 @@ def endpoint_evaluator_with_kernel(X_test, U_test, build_kernel: Callable,
     evaluator built by ``build_kernel(H)`` runs, one kernel launch and a
     sqrt (:func:`fused_rmse`; evaluators cached per H, so warm timings stay
     warm); on the CPU ``scan_eval(H)`` runs.  ``H >= len(X_test)`` returns
-    NaN.
+    NaN.  Each call is the span ``brov2.evaluate`` in a profiler's trace.
     """
     use_kernel = X_test.is_cuda
     cache: Dict[int, Callable] = {}
 
     def run(H: int):
-        if X_test.shape[0] - H <= 0:
-            return torch.tensor(float("nan"), dtype=X_test.dtype, device=X_test.device)
-        if use_kernel:
-            if H not in cache:
-                cache[H] = build_kernel(H)
-            return fused_rmse(cache[H], X_test, U_test, H)
-        return scan_eval(H)
+        with span("brov2.evaluate"):
+            if X_test.shape[0] - H <= 0:
+                return torch.tensor(float("nan"), dtype=X_test.dtype, device=X_test.device)
+            if use_kernel:
+                if H not in cache:
+                    cache[H] = build_kernel(H)
+                return fused_rmse(cache[H], X_test, U_test, H)
+            return scan_eval(H)
 
     return run

@@ -45,6 +45,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
 )
 from bluerov2_dynamics_tpu_torch.models.thrusters import static_thrust
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 # Nominal Table A1 coefficient vector in the generator's perturbation
 # layout (``data/synthetic.py::perturbed_fossen_params``):
@@ -188,16 +189,18 @@ def lag_history(cfg: ThrusterConfig, lag: LagParams, U):
     state and of every fitted coefficient, so the history is computed once
     a fit.  A window that starts its lag from zero carries a thrust error
     for the filter's ~0.3 s settling time, which a gradient fit would bend
-    the coefficients to absorb.
+    the coefficients to absorb.  The call is the span
+    ``brov2.sysid.lag_history`` in a profiler's trace.
     """
-    F_cmd = static_thrust(cfg, U)
-    L = torch.zeros((8, 3), dtype=F_cmd.dtype, device=F_cmd.device)
-    AdT = lag.Ad.T
-    hist = []
-    for k in range(F_cmd.shape[0]):
-        hist.append(L)
-        L = L @ AdT + F_cmd[k][..., None] * lag.Bd       # thrusters.lag_step's state update
-    return torch.stack(hist) if hist else L.new_zeros((0, 8, 3))
+    with span("brov2.sysid.lag_history"):
+        F_cmd = static_thrust(cfg, U)
+        L = torch.zeros((8, 3), dtype=F_cmd.dtype, device=F_cmd.device)
+        AdT = lag.Ad.T
+        hist = []
+        for k in range(F_cmd.shape[0]):
+            hist.append(L)
+            L = L @ AdT + F_cmd[k][..., None] * lag.Bd       # thrusters.lag_step's state update
+        return torch.stack(hist) if hist else L.new_zeros((0, 8, 3))
 
 
 def _flat(theta: dict, names) -> torch.Tensor:
@@ -241,7 +244,10 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
     host seconds of the warm-up and capture (``"capture_s"``) and the
     device milliseconds an iteration replayed (``"replay_ms"``, CUDA events
     around the replays); with ``stats["keep"]`` set, the captured
-    iteration's replay (``"replay"``), to trace it."""
+    iteration's replay (``"replay"``), to trace it.  In a profiler's trace
+    the graph path's warm-up and capture are the span
+    ``brov2.sysid.capture`` and its replays, synchronise included,
+    ``brov2.sysid.replay``."""
     names = sorted(theta0)
     theta = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}
     leaves = [theta[k] for k in names]
@@ -270,29 +276,31 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
         elif steps > 0:
             if reduce is not None:
                 raise ValueError("the CUDA-graph fit runs on one device; a mesh fit runs eagerly")
-            t_start = time.perf_counter()
-            state = leaves + mu + nu + [count]
-            saved = [t.detach().clone() for t in state]
-            side = torch.cuda.Stream(device=first.device)
-            side.wait_stream(torch.cuda.current_stream(first.device))
-            with torch.cuda.stream(side):
-                for _ in range(warmup):
-                    iteration()
-            torch.cuda.current_stream(first.device).wait_stream(side)
-            with torch.no_grad():
-                for t, s in zip(state, saved):
-                    t.copy_(s)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                static_loss = iteration()
-            t_captured = time.perf_counter()
+            with span("brov2.sysid.capture"):
+                t_start = time.perf_counter()
+                state = leaves + mu + nu + [count]
+                saved = [t.detach().clone() for t in state]
+                side = torch.cuda.Stream(device=first.device)
+                side.wait_stream(torch.cuda.current_stream(first.device))
+                with torch.cuda.stream(side):
+                    for _ in range(warmup):
+                        iteration()
+                torch.cuda.current_stream(first.device).wait_stream(side)
+                with torch.no_grad():
+                    for t, s in zip(state, saved):
+                        t.copy_(s)
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    static_loss = iteration()
+                t_captured = time.perf_counter()
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record()
-            for i in range(steps):
-                g.replay()
-                hist[i].copy_(static_loss)
-            events[1].record()
-            torch.cuda.current_stream(first.device).synchronize()
+            with span("brov2.sysid.replay"):
+                events[0].record()
+                for i in range(steps):
+                    g.replay()
+                    hist[i].copy_(static_loss)
+                events[1].record()
+                torch.cuda.current_stream(first.device).synchronize()
             if stats is not None:
                 stats["capture_s"] = t_captured - t_start
                 stats["replay_ms"] = events[0].elapsed_time(events[1]) / steps

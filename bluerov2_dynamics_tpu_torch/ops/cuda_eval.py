@@ -66,6 +66,7 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
     same_device,
     thruster_consts,
 )
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 
 def check_window_shapes(X, U, H: int, n_state: int = 12, n_in: int = 8) -> int:
@@ -294,20 +295,22 @@ def sq_scratch(X, n_blocks: int):
 def launch_window_sq(rc: RowConsts, tc: ThrusterConsts, X, U, H: int, method: str,
                      use_lag: bool):
     """Launch K2 fused; returns the 0-d float32 sum over the ``N - H``
-    starts of ``|x_H(s) - X[s + H]|^2``."""
-    check_method(method)
-    n_start = check_window_shapes(X, U, H)
-    _check_thruster_window(X, U)
-    lib = _build.load_library("window_eval")
-    with torch.cuda.device(X.device):
-        sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
-        code = lib.brov2_window_sq(
-            ctypes.addressof(rc), ctypes.addressof(tc), X.data_ptr(), U.data_ptr(),
-            sq.data_ptr(), partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
-            METHODS[method], int(use_lag), stream)
-    _build.check(lib, code, "window_sq")
-    _build.launches["window_sq"] += 1
-    return sq
+    starts of ``|x_H(s) - X[s + H]|^2``.  The whole call, checks to
+    ``_build.check``, is the span ``brov2.wrapper.launch``."""
+    with span("brov2.wrapper.launch"):
+        check_method(method)
+        n_start = check_window_shapes(X, U, H)
+        _check_thruster_window(X, U)
+        lib = _build.load_library("window_eval")
+        with torch.cuda.device(X.device):
+            sq, partials, ticket, stream = sq_scratch(X, window_plan(n_start, H)["n_blocks"])
+            code = lib.brov2_window_sq(
+                ctypes.addressof(rc), ctypes.addressof(tc), X.data_ptr(), U.data_ptr(),
+                sq.data_ptr(), partials.data_ptr(), partials.numel(), ticket.data_ptr(),
+                n_start, H, METHODS[method], int(use_lag), stream)
+        _build.check(lib, code, "window_sq")
+        _build.launches["window_sq"] += 1
+        return sq
 
 
 def window_occupancy(method: str = "euler", use_lag: bool = True, fused: bool = False) -> dict:

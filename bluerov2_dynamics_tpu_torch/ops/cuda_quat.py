@@ -61,6 +61,7 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
     same_device,
 )
 from bluerov2_dynamics_tpu_torch.ops.quaternion import _NORM_EPS
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -205,21 +206,22 @@ def launch_window_eval_quat(rc: RowConsts, X, TAU, H: int, method: str,
 
 def launch_window_sq_quat(rc: RowConsts, X, TAU, H: int, method: str, renormalize: bool):
     """Launch K5 fused; returns the 0-d float32 sum of the squared endpoint
-    errors."""
-    check_method(method)
-    n_start = check_window_shapes(X, TAU, H, n_state=13, n_in=6)
-    _check_quat_window(X, TAU)
-    lib = _build.load_library("quat")
-    with torch.cuda.device(X.device):
-        n_blocks = quat_plan(n_start, H, sm_count(X.device))["n_blocks"]
-        sq, partials, ticket, stream = sq_scratch(X, n_blocks)
-        code = lib.brov2_window_sq_quat(
-            ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), sq.data_ptr(),
-            partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
-            METHODS[method], int(renormalize), stream)
-    _build.check(lib, code, "window_sq_quat")
-    _build.launches["window_sq_quat"] += 1
-    return sq
+    errors.  The whole call is the span ``brov2.wrapper.launch``."""
+    with span("brov2.wrapper.launch"):
+        check_method(method)
+        n_start = check_window_shapes(X, TAU, H, n_state=13, n_in=6)
+        _check_quat_window(X, TAU)
+        lib = _build.load_library("quat")
+        with torch.cuda.device(X.device):
+            n_blocks = quat_plan(n_start, H, sm_count(X.device))["n_blocks"]
+            sq, partials, ticket, stream = sq_scratch(X, n_blocks)
+            code = lib.brov2_window_sq_quat(
+                ctypes.addressof(rc), X.data_ptr(), TAU.data_ptr(), sq.data_ptr(),
+                partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, H,
+                METHODS[method], int(renormalize), stream)
+        _build.check(lib, code, "window_sq_quat")
+        _build.launches["window_sq_quat"] += 1
+        return sq
 
 
 def make_endpoint_final_cuda_quat(p: FossenParams, dt: float, H: int,

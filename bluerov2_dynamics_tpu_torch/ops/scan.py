@@ -38,13 +38,12 @@ WARMUP_STEPS = 3     # steps run on a side stream before a capture
 # STATS["replay"] (its inputs and outputs as the run left them), to trace
 # one replay; the entry holds the graph and its buffers alive until it is
 # removed.
-STATS = {"capture_s": 0.0, "graphs": 0}
+STATS = {"capture_s": 0.0}
 
 
 def add_capture(seconds: float) -> None:
     """Account one capture's warm-up and capture seconds in :data:`STATS`."""
     STATS["capture_s"] += seconds
-    STATS["graphs"] += 1
 
 
 def capture(fns: Sequence[Callable], state: Sequence[torch.Tensor], graph: bool,

@@ -1,9 +1,10 @@
 """Profiling and numerical-hygiene utilities.
 
 Counterpart of ``bluerov2_dynamics_tpu/utils/profiling.py``: a
-``torch.profiler`` trace written as a Chrome trace, a synchronised
-steps/sec counter, and explicit finite-checks over nested containers of
-tensors or arrays.  The containers are walked as JAX flattens a pytree:
+``torch.profiler`` trace written as a Chrome trace, the port's named
+spans in it, a synchronised steps/sec counter, and explicit
+finite-checks over nested containers of tensors or arrays.  The
+containers are walked as JAX flattens a pytree:
 dicts by sorted key, lists and tuples by index, NamedTuples by field,
 ``None`` as empty; a failing leaf is named by the path string
 ``jax.tree_util.keystr`` gives (``['a'][0].field``).
@@ -18,6 +19,11 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# what span() returns while no profiler records: one object, reused, so an
+# unprofiled call allocates nothing and makes no dispatcher call
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,6 +40,20 @@ def trace(log_dir: str) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def span(name: str):
+    """A range named ``name`` in the profiler's trace, around a ``with``
+    block: ``torch.profiler.record_function(name)`` while a profiler
+    records (its host event on the same clock as the device's kernels, so
+    :func:`trace` and a reader of the trace see it), otherwise one shared
+    no-op context.  A bare ``record_function`` makes a dispatcher call
+    even with no profiler running, which the guard avoids.  Never place
+    one inside a body captured as a CUDA graph: the capture records it
+    once and a replay never runs it."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _sync(tree) -> None:

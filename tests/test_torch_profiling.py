@@ -12,8 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from bluerov2_dynamics_tpu.utils import profiling as jprof
 from bluerov2_dynamics_tpu_torch.utils import profiling as tprof
+
+
+@pytest.fixture(scope="module")
+def jprof():
+    """The JAX package's helpers, imported here and not with the file, so
+    that the card cases below collect on a GPU host without flax (which
+    the JAX package's ``utils`` imports)."""
+    from bluerov2_dynamics_tpu.utils import profiling
+
+    return profiling
 
 
 class Pair(NamedTuple):
@@ -37,7 +46,7 @@ def _tree(to, bad=None):
 
 
 @pytest.mark.parametrize("bad", [None, "w", "x1", "p", "s", "b"])
-def test_check_finite_names_the_leaf_as_keystr_does(bad):
+def test_check_finite_names_the_leaf_as_keystr_does(jprof, bad):
     import jax.numpy as jnp
 
     def message(mod, tree):
@@ -55,7 +64,7 @@ def test_check_finite_names_the_leaf_as_keystr_does(bad):
     assert message(tprof, _tree(np.asarray, bad)) == want
 
 
-def test_the_first_bad_leaf_follows_sorted_keys():
+def test_the_first_bad_leaf_follows_sorted_keys(jprof):
     import jax.numpy as jnp
 
     def tree(to):
@@ -71,7 +80,7 @@ def test_the_first_bad_leaf_follows_sorted_keys():
     assert str(e.value) == str(f.value) == "non-finite values in t['alpha'][0]"
 
 
-def test_fraction_nonfinite_matches_jax():
+def test_fraction_nonfinite_matches_jax(jprof):
     import jax.numpy as jnp
 
     for bad in (None, "w", "x1"):
@@ -89,3 +98,117 @@ def test_trace_writes_a_chrome_trace_and_steps_per_second_reads_after(tmp_path):
     with tprof.StepsPerSecond(100) as c:
         out = c.done({"y": y, "n": [y.sum()]})
     assert out["y"] is y and c.rate > 0
+
+
+# --- the port's spans (``span``): a shared no-op unless a profiler records
+
+
+def _span_counts(prof, *names):
+    """How many host events of each name the profile holds (a range that
+    encloses kernels has a copy on the device's timeline too, not
+    counted)."""
+    from torch.autograd import DeviceType
+
+    got = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    return [got.count(n) for n in names]
+
+
+def _euler_record(n, device):
+    g = torch.Generator().manual_seed(5)
+    X = 0.1 * torch.randn((n, 12), generator=g)
+    U = torch.clamp(0.5 * torch.randn((n, 8), generator=g), -1.0, 1.0)
+    return X.to(device), U.to(device)
+
+
+def _quat_record(n, device):
+    g = torch.Generator().manual_seed(6)
+    X = 0.1 * torch.randn((n, 13), generator=g)
+    X[:, 3:7] = torch.nn.functional.normalize(X[:, 3:7] + torch.tensor([1.0, 0, 0, 0]), dim=1)
+    return X.to(device), (3.0 * torch.randn((n, 6), generator=g)).to(device)
+
+
+EVAL_SPANS = ("brov2.evaluate", "brov2.wrapper.launch", "brov2.wrapper.rmse")
+FIT_SPANS = ("brov2.sysid.lag_history", "brov2.sysid.capture", "brov2.sysid.replay")
+
+
+def test_span_is_one_shared_no_op_without_a_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    assert tprof.span("a") is tprof.span("b")
+    with tprof.span("a"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert tprof.span("a") is not tprof.span("b")
+        with tprof.span("brov2.test"):
+            torch.ones(3).sum()
+    assert _span_counts(prof, "brov2.test") == [1]
+    assert tprof.span("a") is tprof.span("b")
+
+
+def test_a_cpu_evaluator_call_is_one_evaluate_span():
+    from torch.profiler import ProfilerActivity, profile
+
+    from bluerov2_dynamics_tpu_torch.apps.tank_koopman import fossen_evaluator
+
+    X, U = _euler_record(60, "cpu")
+    run = fossen_evaluator(0.02, X, U, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(5)
+    # the CPU path is the step loop: no launch and no fused epilogue
+    assert _span_counts(prof, *EVAL_SPANS) == [1, 0, 0]
+
+
+def test_a_cpu_fit_is_one_lag_history_span_and_no_graph_spans():
+    from torch.profiler import ProfilerActivity, profile
+
+    from bluerov2_dynamics_tpu_torch.models import sysid
+
+    X, U = _euler_record(40, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sysid.fit_thruster(X, U, 0.02, horizon=2, steps=2, device="cpu")
+    assert _span_counts(prof, *FIT_SPANS) == [1, 0, 0]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused window kernels and the CUDA-graph fit")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["euler12", "quat13"])
+def test_card_evaluator_spans_a_horizon_and_the_same_bits(cuda, state):
+    from torch.profiler import ProfilerActivity, profile
+
+    from bluerov2_dynamics_tpu_torch.apps.tank_koopman import fossen_evaluator
+    from bluerov2_dynamics_tpu_torch.apps.tank_wrench_quat import fossen_quat_evaluator
+
+    horizons = (1, 10, 100)
+    if state == "euler12":
+        run = fossen_evaluator(0.02, *_euler_record(2_000, "cpu"), device=cuda)
+    else:
+        run = fossen_quat_evaluator(0.02, *_quat_record(2_000, "cpu"), device=cuda)
+    off = [run(H).item() for H in horizons]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        on = [run(H).item() for H in horizons]
+    assert _span_counts(prof, *EVAL_SPANS) == [3, 3, 3]
+    assert np.array(on, dtype=np.float32).tobytes() == np.array(off, dtype=np.float32).tobytes()
+    assert np.all(np.isfinite(off))
+
+
+@pytest.mark.cuda
+def test_card_graph_fit_spans_and_the_same_bits(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from bluerov2_dynamics_tpu_torch.models import sysid
+
+    X, U = _euler_record(400, cuda)
+    kw = dict(horizon=3, steps=4)
+    off = sysid.fit_thruster(X, U, 0.02, **kw)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        on = sysid.fit_thruster(X, U, 0.02, **kw)
+    assert _span_counts(prof, *FIT_SPANS) == [1, 1, 1]
+    for a, b in ((off.losses, on.losses), (off.log_scales, on.log_scales)):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(off.losses).all())
