@@ -15,7 +15,11 @@ iteration (loss, backward, update) is captured once as a CUDA graph and
 replayed ``steps`` times, the step count and bias corrections on the
 device and no read-back inside the loop: the twin of the JAX fit being one
 compiled call.  The eager loop is the CPU path and the plain version the
-graph is held against.  With ``mesh=`` each rank takes its contiguous
+graph is held against.  A thruster fit by Euler in that graph takes its
+loss and gradient from one CUDA kernel (``csrc/sysid_window.cu``, through
+:class:`_KernelWindowLoss`) in place of autograd's thousands of launches;
+the autograd loss of :func:`thruster_loss` is its plain version, and stays
+the loss of every other path.  With ``mesh=`` each rank takes its contiguous
 block of starts and the ranks all-reduce the loss and the gradients, so
 the objective stays the global mean; that path runs eagerly.
 
@@ -28,6 +32,7 @@ in-place op, no read-back and no branch on a tensor's value.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -44,6 +49,13 @@ from bluerov2_dynamics_tpu_torch.models.params import (
     thruster_config,
 )
 from bluerov2_dynamics_tpu_torch.models.thrusters import static_thrust
+from bluerov2_dynamics_tpu_torch.ops import _build
+from bluerov2_dynamics_tpu_torch.ops.cuda_eval import check_aligned
+from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
+    check_kernel_input,
+    host_float_groups,
+    thruster_consts,
+)
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
 from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
@@ -70,12 +82,13 @@ COEFF_NAMES = (
 # optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 GRAPH_WARMUP = 3            # iterations run on a side stream before the capture
+RHO, GRAVITY = 1000.0, 9.82     # water density [kg/m^3], gravity [m/s^2]
 
 
 def params_from_scales(
     scales,
-    rho: float = 1000.0,
-    g: float = 9.82,
+    rho: float = RHO,
+    g: float = GRAVITY,
     cb=(0.0, 0.0, -0.01),
     current=(0.0, 0.0, 0.0),
     dtype=torch.float32,
@@ -112,7 +125,7 @@ class _Consts(NamedTuple):
                        torch.as_tensor(current, dtype=dtype, device=device))
 
 
-def _assemble(c, cb, current, rho: float = 1000.0, g: float = 9.82) -> FossenParams:
+def _assemble(c, cb, current, rho: float = RHO, g: float = GRAVITY) -> FossenParams:
     """:class:`FossenParams` from the 23 scaled coefficients ``c``."""
     m = c[0]
     volume = c[1]
@@ -247,7 +260,9 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
     iteration's replay (``"replay"``), to trace it.  In a profiler's trace
     the graph path's warm-up and capture are the span
     ``brov2.sysid.capture`` and its replays, synchronise included,
-    ``brov2.sysid.replay``."""
+    ``brov2.sysid.replay``.  The kernels' launch counts (``_build.launches``)
+    count what the device runs: the warm-up's launches and, for each
+    replay, the launches its capture recorded (the capture runs none)."""
     names = sorted(theta0)
     theta = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}
     leaves = [theta[k] for k in names]
@@ -289,9 +304,13 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
                 with torch.no_grad():
                     for t, s in zip(state, saved):
                         t.copy_(s)
+                counted = dict(_build.launches)
                 g = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(g):
                     static_loss = iteration()
+                captured = {k: n - counted[k] for k, n in _build.launches.items()
+                            if n != counted[k]}
+                _build.launches.update(counted)     # a capture launches nothing
                 t_captured = time.perf_counter()
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             with span("brov2.sysid.replay"):
@@ -301,6 +320,8 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
                     hist[i].copy_(static_loss)
                 events[1].record()
                 torch.cuda.current_stream(first.device).synchronize()
+            for k, n in captured.items():       # a replay launches what its capture recorded
+                _build.launches[k] += n * steps
             if stats is not None:
                 stats["capture_s"] = t_captured - t_start
                 stats["replay_ms"] = events[0].elapsed_time(events[1]) / steps
@@ -392,6 +413,76 @@ def _gained(cfg: ThrusterConfig, log_gains) -> ThrusterConfig:
     return cfg._replace(wrench_map=cfg.wrench_map * torch.exp(log_gains)[:, None])
 
 
+class SysidConsts(ctypes.Structure):
+    """Mirror of ``struct SysidConsts`` in ``csrc/sysid_adjoint.cuh``."""
+
+    _fields_ = [("nominal", ctypes.c_float * 23), ("cb", ctypes.c_float * 3),
+                ("g", ctypes.c_float), ("rho_g", ctypes.c_float), ("dt", ctypes.c_float)]
+
+
+def _kernel_window(X, U, lag0, cfg: ThrusterConfig, lag: LagParams, dt: float, horizon: int,
+                   n_start: int, input_delay: int, use_lag: bool, k: _Consts) -> Callable:
+    """The launcher of ``csrc/sysid_window.cu`` over all ``n_start`` starts
+    of :func:`thruster_loss` (Euler; ``lag0`` the lag's contiguous
+    ``(n_start, 8, 3)`` warm start, None for rest): ``launch(s, g, c) ->
+    (loss, grad)``, the 0-d float32 loss and the (34,) gradient (23
+    log-scales, then 8 log-gains and 3 current components where ``g`` and
+    ``c`` are given, else None).  Checks the inputs, reads the constants
+    back and allocates the scratch once; each call allocates its two
+    outputs and launches once."""
+    check_kernel_input(X, "X", 12)
+    check_kernel_input(U, "U", 8)
+    check_aligned(U, "U", 16)
+    lib = _build.load_library("sysid_window")
+    plan = (ctypes.c_int * 7)()     # [6]: the partials' doubles, with gains and current
+    _build.check(lib, lib.brov2_sysid_window_plan(int(use_lag), 1, 1, n_start, horizon, plan),
+                 "sysid_window plan")
+    sc = SysidConsts()
+    sc.nominal[:], sc.cb[:] = host_float_groups(k.nominal, k.cb)
+    sc.g, sc.rho_g, sc.dt = GRAVITY, RHO * GRAVITY, dt
+    tc = thruster_consts(cfg, lag)
+    partials = torch.empty(plan[6], dtype=torch.float64, device=X.device)
+    ticket = torch.zeros((), dtype=torch.int32, device=X.device)     # zero between launches
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def launch(s, g, c):
+        loss = torch.empty((), dtype=torch.float32, device=X.device)
+        grad = torch.empty(34, dtype=torch.float32, device=X.device)
+        with torch.cuda.device(X.device):
+            code = lib.brov2_sysid_window(
+                ctypes.addressof(sc), ctypes.addressof(tc), s.data_ptr(), ptr(g), ptr(c),
+                X.data_ptr(), U.data_ptr(), ptr(lag0), loss.data_ptr(), grad.data_ptr(),
+                partials.data_ptr(), partials.numel(), ticket.data_ptr(), n_start, horizon,
+                input_delay, int(use_lag), torch.cuda.current_stream(X.device).cuda_stream)
+        _build.check(lib, code, "sysid_window")
+        _build.launches["sysid_window"] += 1
+        return loss, grad
+
+    return launch
+
+
+class _KernelWindowLoss(torch.autograd.Function):
+    """The window loss from one launch of ``csrc/sysid_window.cu``, which
+    computes the gradient in the same launch; the backward scales that
+    gradient by ``grad_output``.  ``launch`` is :func:`_kernel_window`'s."""
+
+    @staticmethod
+    def forward(ctx, launch, s, g, c):
+        loss, grad = launch(s, g, c)
+        ctx.save_for_backward(grad)
+        ctx.fitted = (g is not None, c is not None)
+        return loss
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_output):
+        (grad,) = ctx.saved_tensors
+        scaled = grad_output * grad
+        gains, current = ctx.fitted
+        return (None, scaled[:23], scaled[23:31] if gains else None,
+                scaled[31:34] if current else None)
+
+
 class WindowLoss(NamedTuple):
     """A fit's objective: ``loss_fn(theta) -> 0-d tensor`` and its
     starting point ``theta0`` (a dict of ``"s"``, 23 log-scales; ``"g"``, 8
@@ -407,13 +498,22 @@ class WindowLoss(NamedTuple):
     lag: Optional[LagParams] = None
 
 
-def thruster_loss(X, U, dt: float, horizon: int = 10, *, method: str = "euler",
-                  use_lag: bool = True, lag_warmup: bool = True, fit_gains: bool = False,
-                  fit_current: bool = False, input_delay: int = 0,
-                  cfg: Optional[ThrusterConfig] = None, lag: Optional[LagParams] = None,
-                  mesh=None, dtype=torch.float32, device=None) -> WindowLoss:
-    """The window loss of :func:`fit_thruster`, validated as it validates
-    its inputs; with ``mesh`` this rank's block of starts."""
+def thruster_loss(X, U, dt: float, horizon: int = 10, **kw) -> WindowLoss:
+    """The window loss of :func:`fit_thruster` under its keywords from
+    ``method`` to ``device``, validated as it validates its inputs; with
+    ``mesh`` this rank's block of starts."""
+    return _thruster_loss(X, U, dt, horizon, False, **kw)[0]
+
+
+def _thruster_loss(X, U, dt: float, horizon: int, kernel: bool, *, method: str = "euler",
+                   use_lag: bool = True, lag_warmup: bool = True, fit_gains: bool = False,
+                   fit_current: bool = False, input_delay: int = 0,
+                   cfg: Optional[ThrusterConfig] = None, lag: Optional[LagParams] = None,
+                   mesh=None, dtype=torch.float32,
+                   device=None) -> tuple[WindowLoss, Optional[Callable]]:
+    """:func:`thruster_loss`, and with ``kernel`` the same loss from
+    ``csrc/sysid_window.cu`` (Euler, float32, one CUDA device; ``loss_fn``
+    is its plain version), else None."""
     device = _device_of(X, device)
     cfg = (cfg if cfg is not None else thruster_config(dtype=dtype, device=device)).to(device)
     lag = (lag if lag is not None else lag_params(dt, dtype=dtype, device=device)).to(device)
@@ -446,7 +546,17 @@ def thruster_loss(X, U, dt: float, horizon: int = 10, *, method: str = "euler",
         return _window_loss(step, (x0, lag0), lambda carry: carry[0], X, U, horizon, n_start,
                             input_delay, block)
 
-    return WindowLoss(loss_fn, theta0, n_start, reduce, cfg, lag)
+    kernel_fn = None
+    if kernel:
+        if not _takes_kernel(method, True, mesh, dtype) or device.type != "cuda":
+            raise ValueError("the window-loss kernel runs Euler in float32 on one CUDA device")
+        launch = _kernel_window(X, U, lag0 if use_lag and lag_warmup else None, cfg, lag, dt,
+                                horizon, n_start, input_delay, use_lag, k)
+
+        def kernel_fn(theta):
+            return _KernelWindowLoss.apply(launch, theta["s"], theta.get("g"), theta.get("c"))
+
+    return WindowLoss(loss_fn, theta0, n_start, reduce, cfg, lag), kernel_fn
 
 
 def wrench_loss(X, TAU, dt: float, horizon: int = 10, *, method: str = "euler",
@@ -480,6 +590,13 @@ def wrench_loss(X, TAU, dt: float, horizon: int = 10, *, method: str = "euler",
                             input_delay, block)
 
     return WindowLoss(loss_fn, theta0, n_start, reduce)
+
+
+def _takes_kernel(method: str, use_graph: bool, mesh, dtype) -> bool:
+    """Whether a thruster fit takes its loss from the window-loss kernel:
+    Euler, float32, in the CUDA graph of one device.  RK4, a mesh, the
+    eager loop and float64 keep the autograd loss."""
+    return method == "euler" and use_graph and mesh is None and dtype == torch.float32
 
 
 def _use_graph(graph: Optional[bool], device: torch.device, mesh) -> bool:
@@ -528,15 +645,19 @@ def fit_thruster(
     with U[k+1] (the generated recordings, which record each command next
     to the state it produced).  ``mesh`` (first axis used) splits the
     window starts over the ranks.  ``graph`` (default: on CUDA without a
-    mesh) runs the fit as a replayed CUDA graph of one iteration.
+    mesh) runs the fit as a replayed CUDA graph of one iteration; by Euler
+    in float32 that iteration takes the loss and its gradient from one
+    kernel (``csrc/sysid_window.cu``), else from autograd.
     """
     device = _device_of(X, device)
-    wl = thruster_loss(
-        X, U, dt, horizon, method=method, use_lag=use_lag, lag_warmup=lag_warmup,
+    use_graph = _use_graph(graph, device, mesh)
+    kernel = _takes_kernel(method, use_graph, mesh, dtype)
+    wl, kernel_fn = _thruster_loss(
+        X, U, dt, horizon, kernel, method=method, use_lag=use_lag, lag_warmup=lag_warmup,
         fit_gains=fit_gains, fit_current=fit_current, input_delay=input_delay, cfg=cfg,
         lag=lag, mesh=mesh, dtype=dtype, device=device)
-    theta, losses = _run_adam(wl.loss_fn, wl.theta0, steps, lr,
-                              _use_graph(graph, device, mesh), wl.reduce)
+    theta, losses = _run_adam(kernel_fn or wl.loss_fn, wl.theta0, steps, lr, use_graph,
+                              wl.reduce)
     stderr = None
     if compute_stderr:
         stderr = _laplace_stderr(wl.loss_fn, theta, horizon * wl.n_start * 12, wl.reduce)

@@ -59,10 +59,15 @@ Phases (any failure raises and ends the run with a non-zero code):
      kernel (K2 Euler/RK4, K4, K5) under the fitted coefficients, gains
      and current.  Checked: finite, falling losses; each fitted row against
      its plain version; T6's fitted row below its nominal one at H = 10 and
-     100; T6's stderrs ``inf`` exactly at Yv, Kp, Nr; the graph fit against
-     the eager loop at T6's shape over 20 steps (bit for bit); the window
-     loss and its gradient at T6's fitted point against float64 on the
-     host CPU; K2 (Euler, RK4), K4 and K5 under fitted values in both forms
+     100; T6's stderrs ``inf`` exactly at Yv, Kp, Nr; at T6's shape over
+     20 steps, the graph fit (its loss and gradient from the window-loss
+     kernel ``sysid_window``) against the eager autograd loop at rtol
+     1e-4 and its launches, and an RK4 graph fit against its eager loop
+     bit for bit; ``sysid_window`` against autograd's loss and gradient at
+     T6's start and fitted points (rtol 1e-5; 1e-4 of the largest
+     gradient entry), timed against its plain version and its bound; the
+     window loss and its gradient at T6's fitted point against float64 on
+     the host CPU; K2 (Euler, RK4), K4 and K5 under fitted values in both forms
      against their plain versions; then, in phase 6, ``mesh=`` at world 1
      on the one-rank NCCL group against ``mesh=None``.  Timed: the fits,
      an eager iteration, the stderrs (and their peak memory); the
@@ -251,6 +256,14 @@ T5_STEPS = 20_000                   # T5's recording: T6's 45,823 steps until th
 T3_FIT = ["--fossen-fit", "--fossen-fit-current"]
 T4_FIT = ["--fossen-fit"]
 FIT_CHECK_STEPS = 20                # the graph fit against the eager loop, at T6's shape
+# the graph fit (its loss and gradient from the window-loss kernel) against
+# the eager loop (autograd): losses relative, fitted parameters absolute
+FIT_KERNEL_TOL = {"losses": 1e-4, "params": 1e-5}
+# the window-loss kernel against autograd's loss and gradient on the same
+# inputs: the loss relative, the gradient over its largest entry
+WINDOW_KERNEL_TOL = {"loss": 1e-5, "grad": 1e-4}
+SQ_ERR_OPS = 3                      # per state component of an error: sub, mul, add
+WINDOW_TIMED = 20                   # window-loss kernel launches in its timed graph
 ZERO_NOMINAL = (12, 14, 16)         # Yv, Kp, Nr: zero in Table A1, unidentifiable (inf stderr)
 # the window loss and its gradient on the card (float32) against float64 on
 # the host CPU at T6's start and fitted points (at the fitted point, where
@@ -655,19 +668,27 @@ def fitted_row(app, run, plain_sq, X, U, nominal, card) -> dict:
 
 
 def fit_checks(dev, card, t6, t5, t3, t4):
-    """The fits of the app runs, checked further on the card: the graph
-    fit against the eager loop at T6's shape over FIT_CHECK_STEPS steps;
-    an eager iteration's host time, device events and busy share, and the
-    graph fit's; the stderrs' time and peak memory; the window loss and its
-    gradient at T6's fitted point against float64 on the host CPU; K2
-    (Euler, RK4), K4 and K5 under the fitted values in both forms against
-    their plain versions.  Returns ``(summary, context for the mesh
-    check)``."""
-    from bluerov2_dynamics_tpu_torch.eval.timing import host_ms, profile_calls
+    """The fits of the app runs, checked further on the card, at T6's
+    shape over FIT_CHECK_STEPS steps: the graph fit (the window-loss
+    kernel) against the eager loop (autograd), with the kernel's launches
+    from 0 just before it; an RK4 graph fit (autograd) against its eager
+    loop bit for bit.  The window-loss kernel alone against autograd's
+    loss and gradient at T6's start and fitted points, its device time,
+    its plain version's and its bound.  An eager iteration's host time,
+    device events and busy share; a replay of the kernel's iteration and
+    its capture's host time; the stderrs' time
+    and peak memory; the window loss and its gradient at T6's fitted point
+    against float64 on the host CPU; K2 (Euler, RK4), K4 and K5 under the
+    fitted values in both forms against their plain versions.  Returns
+    ``(summary, context for the mesh check and the kernels' record)``."""
+    from bluerov2_dynamics_tpu_torch.eval.op_counts import actuation_ops, row_ops
+    from bluerov2_dynamics_tpu_torch.eval.timing import cuda_event_time, host_ms, profile_calls
     from bluerov2_dynamics_tpu_torch.models import sysid
     from bluerov2_dynamics_tpu_torch.models.params import lag_params
+    from bluerov2_dynamics_tpu_torch.ops import _build
     from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
     from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
+    from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
 
     cpu = torch.device("cpu")
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
@@ -686,24 +707,107 @@ def fit_checks(dev, card, t6, t5, t3, t4):
 
     # the lag history alone (a step loop over the training split, once a fit)
     _, lag_s = timed(lambda: sysid.lag_history(t6["sysid"].cfg, lag, U_tr))
-    # the graph fit against the eager loop, bit for bit
+    # the graph fit (the window-loss kernel) against the eager loop (autograd)
+    _build.reset_launch_counts()
     graph, graph_s = timed(lambda: sysid.fit_thruster(
         X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, graph=True, **kw))
+    window_launches = _build.launches["sysid_window"]
+    print(f"T6 graph fit: {window_launches} sysid_window launches ({sysid.GRAPH_WARMUP} warm-up, "
+          f"{FIT_CHECK_STEPS} replays)")
+    if window_launches != FIT_CHECK_STEPS + sysid.GRAPH_WARMUP:
+        fail(f"the T6 graph fit launched the window-loss kernel {window_launches} times, not "
+             f"{FIT_CHECK_STEPS} replays and {sysid.GRAPH_WARMUP} warm-up iterations")
     eager, eager_s = timed(lambda: sysid.fit_thruster(
         X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, graph=False, **kw))
-    fields = ("losses", "log_scales", "log_gains", "current")
-    same = {f: torch.equal(getattr(graph, f), getattr(eager, f)) for f in fields}
-    parted = (graph.losses != eager.losses).nonzero().flatten().tolist()
-    print(f"T6 fit, graph against eager over {FIT_CHECK_STEPS} steps at {X_tr.shape[0]} rows: the "
-          f"same bits {same}; first iteration where the losses part: "
-          f"{parted[0] if parted else None}; graph {graph_s:.3f} s, eager {eager_s:.3f} s "
+    gaps = {"losses": float(((graph.losses - eager.losses).abs() / eager.losses.abs()).max())}
+    gaps["params"] = max(float((getattr(graph, f) - getattr(eager, f)).abs().max())
+                         for f in ("log_scales", "log_gains", "current"))
+    print(f"T6 fit, graph (kernel) against eager (autograd) over {FIT_CHECK_STEPS} steps at "
+          f"{X_tr.shape[0]} rows: losses rel {gaps['losses']:.3e} (tol "
+          f"{FIT_KERNEL_TOL['losses']:g}), parameters max|d| {gaps['params']:.3e} (tol "
+          f"{FIT_KERNEL_TOL['params']:g}); graph {graph_s:.3f} s, eager {eager_s:.3f} s "
           f"(lag history, warm-up and capture included) [{card}]")
+    if any(gaps[k] > FIT_KERNEL_TOL[k] for k in gaps):
+        fail(f"the graph fit and the eager fit differ ({gaps})")
+    # an RK4 fit still replays autograd's graph: the same kernels in the
+    # same order as its eager loop, so the same bits
+    rk4 = {mode: sysid.fit_thruster(X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, method="rk4",
+                                    graph=mode, **kw) for mode in ("graph", "eager")}
+    fields = ("losses", "log_scales", "log_gains", "current")
+    same = {f: torch.equal(getattr(rk4["graph"], f), getattr(rk4["eager"], f)) for f in fields}
+    parted = (rk4["graph"].losses != rk4["eager"].losses).nonzero().flatten().tolist()
+    print(f"T6 RK4 fit, graph against eager over {FIT_CHECK_STEPS} steps: the same bits {same}; "
+          f"first iteration where the losses part: {parted[0] if parted else None} [{card}]")
     if not all(same.values()):
-        fail(f"the graph fit and the eager fit differ ({same}; losses part at {parted[:1]})")
+        fail(f"the RK4 graph fit and its eager fit differ ({same}; losses part at {parted[:1]})")
+
+    # the window-loss kernel alone against autograd's loss and gradient (its
+    # plain version) on the same inputs, at T6's start and fitted points
+    wl, kernel_fn = sysid._thruster_loss(X_tr, U_tr, DT, 10, True, input_delay=1, fit_gains=True,
+                                         fit_current=True)
+    fitted = {"s": res6.log_scales, "g": res6.log_gains, "c": res6.current}
+    start = {k: torch.zeros_like(v) for k, v in fitted.items()}
+
+    def card_value_and_grad(fn, point):
+        th = {k: v.detach().clone().requires_grad_(True) for k, v in point.items()}
+        with full_f32():
+            loss = fn(th)
+            grad = torch.autograd.grad(loss, [th[k] for k in sorted(th)])
+        return loss.detach(), torch.cat([g.reshape(-1) for g in grad])
+
+    kernel_gaps = {}
+    for label, point in (("start", start), ("fitted", fitted)):
+        got_l, got_g = card_value_and_grad(kernel_fn, point)
+        want_l, want_g = card_value_and_grad(wl.loss_fn, point)
+        kernel_gaps[label] = dict(
+            loss_rel=float((got_l - want_l).abs() / want_l.abs()),
+            grad_over_largest=float((got_g - want_g).abs().max() / want_g.abs().max()))
+        print(f"sysid_window at T6's {label} point against autograd: loss rel "
+              f"{kernel_gaps[label]['loss_rel']:.3e} (rtol {WINDOW_KERNEL_TOL['loss']:g}), "
+              f"gradient max|d| over its largest entry "
+              f"{kernel_gaps[label]['grad_over_largest']:.3e} (tol {WINDOW_KERNEL_TOL['grad']:g})")
+    if any(g["loss_rel"] > WINDOW_KERNEL_TOL["loss"]
+           or g["grad_over_largest"] > WINDOW_KERNEL_TOL["grad"] for g in kernel_gaps.values()):
+        fail(f"the window-loss kernel is off autograd's loss or gradient: {kernel_gaps}")
+    # its time, its plain version's (autograd's loss and gradient) and its
+    # bound: the forward's steps and squared errors, the reverse pass at
+    # twice the forward.  A launch is as short as its launcher's host time,
+    # and the profiler keeps few of its events in this long process, so the
+    # kernel's time is a CUDA graph of WINDOW_TIMED launches back to back,
+    # between CUDA events; the launches one by one beside it
+    with torch.no_grad():
+        kernel_fn(fitted)
+        torch.cuda.synchronize()
+        timed_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(timed_graph):
+            for _ in range(WINDOW_TIMED):
+                kernel_fn(fitted)
+        k_ms = cuda_event_time(timed_graph.replay, iters=5) / WINDOW_TIMED
+        e_ms = cuda_event_time(lambda: kernel_fn(fitted), iters=20)
+    del timed_graph
+    p_ms = cuda_event_time(lambda: card_value_and_grad(wl.loss_fn, fitted), iters=3)
+    nnz = int((res6.cfg.wrench_map != 0).sum())
+    b = bound(3 * wl.n_start * 10 * (row_ops("euler") + actuation_ops(nnz) + 12 * SQ_ERR_OPS), 0)
+    print(f"sysid_window at {wl.n_start} starts x H=10: {k_ms:.4f} ms a launch in a graph of "
+          f"{WINDOW_TIMED}, {e_ms:.4f} ms a launch one by one (plain {p_ms:.2f} ms, bound "
+          f"{b[0]:.4f} ms by {b[1]}: {100 * b[0] / k_ms:.1f}%) [{card}]")
+    window_entry = dict(
+        launches=window_launches,
+        max_rel_err=max(g["grad_over_largest"] for g in kernel_gaps.values()),
+        err_of="the gradient's max|kernel - autograd| over its largest entry, at T6's start and "
+               "fitted points", gaps=kernel_gaps, tol=WINDOW_KERNEL_TOL,
+        ms=k_ms, kernel_ms=k_ms, ms_of=f"a CUDA graph of {WINDOW_TIMED} launches between CUDA "
+                                       "events", event_ms=e_ms, plain_ms=p_ms,
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        shape=f"X ({X_tr.shape[0]}, 12), U ({X_tr.shape[0]}, 8), {wl.n_start} starts x H=10, "
+              f"Euler, input delay 1, gains and current")
+
+    # the app's iteration on the kernel, captured and replayed as the app
+    # does: a replay's device milliseconds and the capture's host seconds
+    replay = {}
+    sysid._run_adam(kernel_fn, wl.theta0, len(res6.losses), 0.02, graph=True, stats=replay)
 
     # an eager iteration: host time, device events, busy share
-    wl = sysid.thruster_loss(X_tr, U_tr, DT, 10, input_delay=1, fit_gains=True, fit_current=True)
-    fitted = {"s": res6.log_scales, "g": res6.log_gains, "c": res6.current}
     theta = {k: v.clone().requires_grad_(True) for k, v in fitted.items()}
     leaves = [theta[k] for k in sorted(theta)]
     mu, nu = [torch.zeros_like(t) for t in leaves], [torch.zeros_like(t) for t in leaves]
@@ -722,26 +826,24 @@ def fit_checks(dev, card, t6, t5, t3, t4):
     base = torch.cuda.memory_allocated(dev)
     se, stderr_s = timed(lambda: sysid._laplace_stderr(wl.loss_fn, fitted, 10 * wl.n_start * 12))
     peak = torch.cuda.max_memory_allocated(dev)
-    graph_app_s = t6["sysid_s"] - stderr_s
     out["T6_fit"] = dict(
-        rows=X_tr.shape[0], starts=wl.n_start, graph_vs_eager_same_bits=same, lag_history_s=lag_s,
+        rows=X_tr.shape[0], starts=wl.n_start, graph_vs_eager_gaps=gaps,
+        rk4_graph_vs_eager_same_bits=same, lag_history_s=lag_s,
         graph_s_20=graph_s, eager_s_20=eager_s, eager_ms_an_iteration=it_ms[len(it_ms) // 2],
-        graph_ms_an_iteration=1e3 * (graph_app_s - graph_s) / (len(res6.losses) - FIT_CHECK_STEPS),
+        graph_ms_an_iteration=replay["replay_ms"], graph_capture_s=replay["capture_s"],
+        kernel_share_of_replay=k_ms / replay["replay_ms"],
         app_fit_s=t6["sysid_s"], stderr_s=stderr_s, stderr_peak_gib=peak / 2 ** 30,
         stderr_base_gib=base / 2 ** 30, launches_an_iteration=len(events) / 3,
         eager_busy_share=busy_us / wall_us if events else None,
         iteration_device_ms=1e-3 * busy_us / 3 if events else None)
     o = out["T6_fit"]
-    # a replay launches the same kernels: their device time over its wall time
-    o["graph_busy_share"] = (o["iteration_device_ms"] / o["graph_ms_an_iteration"]
-                             if events else None)
     print(f"T6 fit: an eager iteration {o['eager_ms_an_iteration']:.2f} ms (median of 5), "
           f"{o['launches_an_iteration']:.0f} device events, busy {busy_us / 3:.1f} of "
-          f"{wall_us / 3:.1f} us under the profiler = {o['eager_busy_share']}; the app's "
-          f"{len(res6.losses)} steps {graph_app_s:.3f} s without its stderrs = "
-          f"{o['graph_ms_an_iteration']:.2f} ms a replay beyond the first {FIT_CHECK_STEPS} "
-          f"(an iteration's kernels over it: {o['graph_busy_share']}); the lag history "
-          f"{lag_s:.3f} s; stderrs "
+          f"{wall_us / 3:.1f} us under the profiler = {o['eager_busy_share']}; a replay of the "
+          f"kernel's iteration {o['graph_ms_an_iteration']:.4f} ms over {len(res6.losses)} "
+          f"replays, the kernel {o['kernel_share_of_replay']:.3f} of it, capture "
+          f"{o['graph_capture_s']:.4f} s; the app's fit {t6['sysid_s']:.3f} s with its stderrs; "
+          f"the lag history {lag_s:.3f} s; stderrs "
           f"{stderr_s:.3f} s, peak {peak / 2 ** 30:.3f} GiB (base {base / 2 ** 30:.3f}) "
           f"[{card}]")
     if not all(np.array_equal(np.isinf(se[k].cpu().numpy()), np.isinf(res6.stderr[k].cpu().numpy()))
@@ -764,7 +866,6 @@ def fit_checks(dev, card, t6, t5, t3, t4):
         grad = torch.autograd.grad(loss, [th[k] for k in names])
         return float(loss.detach()), torch.cat([g.reshape(-1) for g in grad]).double().cpu()
 
-    start = {k: torch.zeros_like(v) for k, v in fitted.items()}
     grads = {}
     for label, point in (("start", start), ("fitted", fitted)):
         l32, g32 = value_and_grad(wl, point, torch.float32, dev)
@@ -839,7 +940,7 @@ def fit_checks(dev, card, t6, t5, t3, t4):
     print("K2 (Euler, RK4), K4 and K5 under the fitted coefficients, gains and current agree with "
           "their plain versions; the fused sums give the same bits on ten calls")
     out["kernels_under_fitted_values"] = checked
-    return out, dict(X_tr=X_tr, U_tr=U_tr, kw=kw, eager=eager)
+    return out, dict(X_tr=X_tr, U_tr=U_tr, kw=kw, eager=eager, sysid_window=window_entry)
 
 
 def demo_runs(dev, card) -> dict:
@@ -3061,6 +3162,10 @@ def main() -> None:
             entry["checked"] = (f"{B_ROLL - n_near} of {B_ROLL} trajectories; {n_near} near the "
                                 f"gimbal singularity left out (max|kernel - plain| {near_diff:.3e})")
         kernels.append(entry)
+    kernels.append(dict(name="sysid_window", route="cuda", source=src + "sysid_window.cu",
+                        replaces="none: the JAX fit takes jax.value_and_grad of the window loss "
+                                 "through a lax.scan (bluerov2_dynamics_tpu/models/sysid.py:135-173)",
+                        **fit_ctx["sysid_window"]))
     print(f"measured prices: " + json.dumps({"sinf_flops": sin_price, "rsqrtf_flops": rsqrt_price,
                                               "fma_tree_share_of_peak": tree / FP32_PEAK}))
     print("koopman apps: " + json.dumps(apps, default=float))

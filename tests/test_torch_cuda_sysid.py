@@ -1,15 +1,25 @@
-"""The Fossen identification on the card, and the window kernels K2, K4 and
-K5 fed fitted coefficients, gains and a current.
+"""The Fossen identification on the card, the window-loss kernel of the
+fit (``csrc/sysid_window.cu``), and the window kernels K2, K4 and K5 fed
+fitted coefficients, gains and a current.
 
 Every case needs a CUDA device and skips without one.  The file imports
 no JAX, flax or optax (the card's machine has neither of the last two);
 the parity with the JAX package is ``test_torch_sysid.py``'s work.
-Tolerances: the CUDA-graph fit against the eager loop on the card bit for
-bit (the same kernels in the same order); the fit on the card against the
-same fit on the host CPU at rtol 1e-3 on the loss history; the kernels'
-endpoints against their plain versions at atol 2e-5 and the fused sums
-at rtol 1e-5, the same bits on ten calls (``chip_smoke.py``'s bounds).
+Tolerances: an autograd CUDA-graph fit (RK4, and the quat13 wrench fit)
+against the eager loop on the card bit for bit (the same kernels in the
+same order); the window-loss kernel against the autograd loss, its plain
+version, at rtol 1e-5 on the loss and 1e-4 of the largest gradient entry
+(other sums, in another order), the same bits on ten calls; the Euler
+graph fit, which runs that kernel, against the eager autograd fit over 20
+steps at rtol 1e-4 on the losses and atol 1e-5 on the fitted parameters;
+the fit on the card against the same fit on the host CPU at rtol 1e-3 on
+the loss history; the kernels' endpoints against their plain versions at
+atol 2e-5 and the fused sums at rtol 1e-5, the same bits on ten calls
+(``chip_smoke.py``'s bounds).
 """
+
+import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -20,6 +30,7 @@ from bluerov2_dynamics_tpu_torch.models.params import lag_params, thruster_confi
 from bluerov2_dynamics_tpu_torch.ops import _build
 from bluerov2_dynamics_tpu_torch.ops import cuda_eval as ce
 from bluerov2_dynamics_tpu_torch.ops import cuda_quat as cq
+from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
 
 DT = 0.02
 N = 2_000
@@ -32,6 +43,7 @@ def cuda():
     return torch.device("cuda")
 
 
+@functools.lru_cache(maxsize=None)
 def _record(device, n=N, seed=3):
     """The pseudo tank recording (the port's generator on the host CPU)
     as float32 on ``device``: euler12 states, thruster commands, the body
@@ -62,8 +74,9 @@ def test_graph_fit_equals_the_eager_fit_bit_for_bit(kind, cuda):
     X, U, TAU, X13 = _record(cuda)
     kw = dict(horizon=10, steps=20, lr=0.02, input_delay=1)
     if kind == "thruster":
-        fit = lambda graph: sysid.fit_thruster(X, U, DT, fit_gains=True, fit_current=True,  # noqa
-                                               graph=graph, **kw)
+        # RK4: an Euler graph fit takes the window-loss kernel, not autograd
+        fit = lambda graph: sysid.fit_thruster(X, U, DT, method="rk4", fit_gains=True,  # noqa
+                                               fit_current=True, graph=graph, **kw)
     else:
         fit = lambda graph: sysid.fit_wrench(X13, TAU, DT, state="quat13", fit_current=True,  # noqa
                                              graph=graph, **kw)
@@ -122,3 +135,82 @@ def test_window_kernels_under_fitted_values_match_their_plain_versions(H, cuda):
         assert len({s.cpu().numpy().tobytes() for s in sq}) == 1, name
         np.testing.assert_allclose(float(sq[0]), float(ce.endpoint_sq(want, Xk, H)), rtol=1e-5,
                                    err_msg=name)
+
+
+def _theta(gains, current, device):
+    """A point away from zero: ``_fitted``'s spread of log-scales and
+    log-gains, and its current."""
+    theta = {"s": torch.linspace(-0.1, 0.1, 23, device=device)}
+    if gains:
+        theta["g"] = torch.linspace(0.1, -0.1, 8, device=device)
+    if current:
+        theta["c"] = torch.tensor([0.12, -0.08, 0.02], device=device)
+    return theta
+
+
+def _value_and_grad(loss_fn, theta):
+    th = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    names = sorted(th)
+    with full_f32():
+        loss = loss_fn(th)
+        grads = torch.autograd.grad(loss, [th[k] for k in names])
+    return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+
+# H = 3 runs a single short segment; 15 and 25 recompute one and two
+# earlier segments of kSysidSegment (10) steps in the reverse pass
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,delay,use_lag,lag_warmup,gains,current",
+                         list(itertools.product((3, 10, 15, 25), (0, 1), *[(False, True)] * 4)))
+def test_window_kernel_matches_the_autograd_loss_and_gradient(H, delay, use_lag, lag_warmup, gains,
+                                                              current, cuda):
+    X, U, _, _ = _record(cuda)
+    wl, kernel_fn = sysid._thruster_loss(X, U, DT, H, True, use_lag=use_lag,
+                                         lag_warmup=lag_warmup, fit_gains=gains,
+                                         fit_current=current, input_delay=delay)
+    theta = _theta(gains, current, cuda)
+    before = _build.launches["sysid_window"]
+    loss, grad = _value_and_grad(kernel_fn, theta)
+    assert _build.launches["sysid_window"] == before + 1
+    want_loss, want_grad = _value_and_grad(wl.loss_fn, theta)
+    assert grad.shape == want_grad.shape == (23 + 8 * gains + 3 * current,)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    want = want_grad.cpu().numpy()
+    np.testing.assert_allclose(grad.cpu().numpy(), want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+def test_window_kernel_gives_the_same_bits_on_ten_calls(cuda):
+    X, U, _, _ = _record(cuda)
+    _, kernel_fn = sysid._thruster_loss(X, U, DT, 10, True, fit_gains=True, fit_current=True,
+                                        input_delay=1)
+    theta = _theta(True, True, cuda)
+    calls = [_value_and_grad(kernel_fn, theta) for _ in range(10)]
+    assert len({(loss.cpu().numpy().tobytes(), grad.cpu().numpy().tobytes())
+                for loss, grad in calls}) == 1
+
+
+@pytest.mark.cuda
+def test_kernel_graph_fit_matches_the_eager_autograd_fit(cuda):
+    X, U, _, _ = _record(cuda)
+    kw = dict(horizon=10, steps=20, lr=0.02, input_delay=1, fit_gains=True, fit_current=True)
+    graph = sysid.fit_thruster(X, U, DT, graph=True, **kw)
+    eager = sysid.fit_thruster(X, U, DT, graph=False, **kw)
+    np.testing.assert_allclose(graph.losses.cpu().numpy(), eager.losses.cpu().numpy(), rtol=1e-4)
+    for field in ("log_scales", "log_gains", "current"):
+        np.testing.assert_allclose(getattr(graph, field).cpu().numpy(),
+                                   getattr(eager, field).cpu().numpy(), rtol=0, atol=1e-5,
+                                   err_msg=field)
+    assert float(graph.losses[-1]) < float(graph.losses[0])
+
+
+@pytest.mark.cuda
+def test_a_kernel_fit_counts_its_replays_and_warm_up(cuda):
+    X, U, _, _ = _record(cuda)
+    steps = 7
+    before = dict(_build.launches)
+    sysid.fit_thruster(X, U, DT, horizon=10, steps=steps, lr=0.02)
+    torch.cuda.synchronize()
+    rose = {k: n - before[k] for k, n in _build.launches.items() if n != before[k]}
+    assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP}     # the capture runs none

@@ -345,3 +345,28 @@ def test_fit_validation_errors(recording):
         warnings.simplefilter("error")
         res = sysid.fit_thruster(X[:40], U[:40], DT, horizon=2, steps=2, device="cpu")
     assert res.stderr is None and res.losses.shape == (2,)
+
+
+# --- which fits take the window-loss kernel --------------------------------------
+
+def test_only_a_float32_euler_graph_fit_on_one_device_takes_the_kernel(recording, monkeypatch):
+    f32 = torch.float32
+    assert sysid._takes_kernel("euler", True, None, f32)
+    assert not sysid._takes_kernel("rk4", True, None, f32)
+    assert not sysid._takes_kernel("euler", False, None, f32)
+    assert not sysid._takes_kernel("euler", True, object(), f32)
+    assert not sysid._takes_kernel("euler", True, None, torch.float64)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("reached the window-loss kernel's wrapper")
+
+    monkeypatch.setattr(sysid, "_kernel_window", refuse)
+    X, U = recording
+    X, U = X[:40], U[:40]
+    for method in ("euler", "rk4"):
+        res = sysid.fit_thruster(X, U, DT, horizon=2, steps=1, method=method, device="cpu")
+        assert res.losses.shape == (1,)
+    res = sysid.fit_wrench(X, np.zeros((len(X), 6)), DT, horizon=2, steps=1, device="cpu")
+    assert res.losses.shape == (1,)
+    with pytest.raises(ValueError, match="window-loss kernel runs Euler in float32"):
+        sysid._thruster_loss(X, U, DT, 2, True, device="cpu")
