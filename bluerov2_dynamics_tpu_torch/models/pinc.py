@@ -50,6 +50,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
 from bluerov2_dynamics_tpu_torch.models.thrusters import effective_wrench_history
 from bluerov2_dynamics_tpu_torch.ops.integrators import rollout
 from bluerov2_dynamics_tpu_torch.ops.rotations import ssa
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 # the wrench components of the reduced model: Fx, Fy, Fz, Mz
 WRENCH4_COLS = (0, 1, 2, 5)
@@ -389,7 +390,11 @@ def train_epoch(net: PINcNet, opt: AdamWClip, data: PINcData, perm, starts, tc: 
     Under ``dp`` each rank takes its contiguous block of every minibatch
     (and of the windows, when they divide over the ranks; else every rank
     takes them all), and the gradients and losses are averaged over the
-    ranks: the gradient of the one global loss, each term counted once."""
+    ranks: the gradient of the one global loss, each term counted once.
+
+    Each minibatch is three spans in a profiler's trace: ``brov2.pinc.loss``
+    (the gather and the loss), ``brov2.pinc.grad`` (the backward) and
+    ``brov2.pinc.optim`` (the update); the all-reduce lies outside them."""
     import torch.distributed as dist
 
     offsets = torch.arange(tc.rollout_steps + 1, device=perm.device)
@@ -401,9 +406,11 @@ def train_epoch(net: PINcNet, opt: AdamWClip, data: PINcData, perm, starts, tc: 
             idx = idx.chunk(dp.world)[dp.rank]
             if dp.shard_windows:
                 widx = widx.chunk(dp.world)[dp.rank]
-        loss = _loss(net, tc, rp, use_rollout, data.z[idx], data.y[idx], data.u4[idx],
-                     data.z[widx] if use_rollout else None)
-        grads = torch.autograd.grad(loss, params)
+        with span("brov2.pinc.loss"):
+            loss = _loss(net, tc, rp, use_rollout, data.z[idx], data.y[idx], data.u4[idx],
+                         data.z[widx] if use_rollout else None)
+        with span("brov2.pinc.grad"):
+            grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if dp is not None:
             flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
@@ -412,7 +419,8 @@ def train_epoch(net: PINcNet, opt: AdamWClip, data: PINcData, perm, starts, tc: 
             grads = [g.view_as(p) for g, p in zip(flat[:-1].split([p.numel() for p in params]),
                                                    params)]
             loss = flat[-1]
-        opt.step(grads)
+        with span("brov2.pinc.optim"):
+            opt.step(grads)
         losses.append(loss)
     return torch.stack(losses).mean()
 

@@ -169,6 +169,43 @@ def test_a_cpu_fit_is_one_lag_history_span_and_no_graph_spans():
     assert _span_counts(prof, *FIT_SPANS) == [1, 0, 0]
 
 
+PINC_SPANS = ("brov2.pinc.loss", "brov2.pinc.grad", "brov2.pinc.optim")
+
+
+def _pinc_epoch():
+    """A fresh net, optimiser and 2-minibatch epoch on random pairs; calling
+    the result trains it and returns the mean loss and the parameters."""
+    from bluerov2_dynamics_tpu_torch.models import params, pinc
+
+    g = torch.Generator().manual_seed(7)
+    data = pinc.PINcData(z=torch.randn((60, 14), generator=g), y=torch.randn((60, 9), generator=g),
+                         u4=torch.randn((60, 4), generator=g))
+    net = pinc.init_params(torch.Generator().manual_seed(8))
+    tc = pinc.TrainConfig(batch=8, rollout_windows=2, rollout_steps=3)
+    perm, starts = pinc.epoch_draws(g, 60, 2, 8, tc)
+    opt = pinc.make_optimizer(tc, net.parameters())
+    rp = params.reduced_params(device="cpu")
+
+    def run():
+        loss = pinc.train_epoch(net, opt, data, perm, starts, tc, rp, True)
+        return loss, [p.detach().clone() for p in net.parameters()]
+    return run
+
+
+def test_a_pinc_epoch_is_three_spans_a_minibatch_and_none_unprofiled(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = _pinc_epoch()()
+    assert _span_counts(prof, *PINC_SPANS) == [2, 2, 2]
+    # with no profiler recording, no span reaches record_function
+    calls = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: calls.append(name))
+    off = _pinc_epoch()()
+    assert calls == []
+    assert torch.equal(on[0], off[0]) and all(torch.equal(a, b) for a, b in zip(on[1], off[1]))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
