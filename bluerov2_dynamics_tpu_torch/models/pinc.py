@@ -25,13 +25,17 @@ What the port keeps of flax and optax, written out here:
   warmup-cosine schedule, whose first update has learning rate 0
   (:class:`AdamWClip`).
 
-The training loop runs eagerly, one minibatch step after another; the
-epoch takes its random draws as arguments (:func:`train_from_draws`,
+The epoch takes its random draws as arguments (:func:`train_from_draws`,
 :func:`train_epoch`), so that the JAX package's draws can be fed to it.
+On one CUDA device a minibatch step (the gather, the losses, the
+backward, the clip and the update) is captured once as a CUDA graph and
+replayed for every minibatch of the call; on the CPU and under a mesh
+the steps run eagerly, one after another.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Iterable, NamedTuple, Optional, Sequence
 
@@ -50,6 +54,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
 from bluerov2_dynamics_tpu_torch.models.thrusters import effective_wrench_history
 from bluerov2_dynamics_tpu_torch.ops.integrators import rollout
 from bluerov2_dynamics_tpu_torch.ops.rotations import ssa
+from bluerov2_dynamics_tpu_torch.ops.scan import capture, use_graph
 from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 # the wrench components of the reduced model: Fx, Fy, Fz, Mz
@@ -57,6 +62,10 @@ WRENCH4_COLS = (0, 1, 2, 5)
 # flax's LeCun normal: unit variance over fan_in, truncated at 2 standard
 # deviations, whose own standard deviation this constant undoes
 _TRUNC_STD = 0.87962566103423978
+GRAPH_WARMUP = 1    # minibatch steps run on a side stream before the step's capture
+# minibatches that train_epoch has run since import: as replays of a
+# captured step and eagerly
+STEPS = {"replayed": 0, "eager": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -324,17 +333,22 @@ class AdamWClip:
     moments ``(1 - b) g^k + b m``, bias-corrected by ``1 - b^count`` (in
     float64, then cast), ``m / (sqrt(v) + eps)``, plus ``weight_decay *
     param``, times ``-lr(count)`` (count from 0), added to the parameter.
-    ``lr`` is a float or a ``count -> float`` schedule."""
+    ``lr`` is a float or a sequence of rates indexed by the count, the last
+    holding for every later count.  The count (a 0-d float64 tensor), the
+    rates and the bias corrections live on the parameters' device (of one
+    dtype), so that a step reads nothing back and replays in a CUDA
+    graph."""
 
     def __init__(self, params, lr, clip_norm: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4):
         self.params = list(params)
-        self.lr = lr
+        device = self.params[0].device if self.params else None
+        self.rates = torch.as_tensor(lr, dtype=torch.float64, device=device).reshape(-1)
         self.clip_norm = float(clip_norm)
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.float64, device=device)
 
     @torch.no_grad()
     def step(self, grads) -> None:
@@ -342,25 +356,28 @@ class AdamWClip:
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = g_norm < self.clip_norm
         grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm) for g in grads]
-        count = self.count + 1
-        bc1, bc2 = 1 - self.b1 ** count, 1 - self.b2 ** count
-        step_size = -(self.lr(self.count) if callable(self.lr) else self.lr)
+        dtype = self.params[0].dtype
+        at = torch.clamp_max(self.count, self.rates.numel() - 1).long()
+        step_size = -torch.take(self.rates, at).to(dtype)
+        self.count.add_(1.0)
+        bc1, bc2 = ((1 - torch.pow(b, self.count)).to(dtype) for b in (self.b1, self.b2))
         b1, b2 = self.b1, self.b2
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             m.copy_((1 - b1) * g + b1 * m)
             v.copy_((1 - b2) * (g * g) + b2 * v)
             update = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             p.add_(step_size * (update + self.weight_decay * p))
-        self.count = count
 
 
 def make_optimizer(tc: TrainConfig, params, total_steps: Optional[int] = None) -> AdamWClip:
     """AdamW after a global-norm clip at ``tc.clip_norm``; with
     ``tc.lr_schedule == "cosine"`` and ``total_steps``, the learning rate
-    follows :func:`warmup_cosine_schedule`, else it is ``tc.lr``."""
-    lr = (warmup_cosine_schedule(tc.lr, total_steps)
-          if tc.lr_schedule == "cosine" and total_steps else tc.lr)
-    return AdamWClip(params, lr, tc.clip_norm)
+    follows :func:`warmup_cosine_schedule` (its ``total_steps + 1`` rates,
+    the last the end value), else it is ``tc.lr``."""
+    if tc.lr_schedule == "cosine" and total_steps:
+        schedule = warmup_cosine_schedule(tc.lr, total_steps)
+        return AdamWClip(params, [schedule(c) for c in range(total_steps + 1)], tc.clip_norm)
+    return AdamWClip(params, tc.lr, tc.clip_norm)
 
 
 class _DataParallel(NamedTuple):
@@ -381,8 +398,94 @@ def _loss(net, tc: TrainConfig, rp, use_rollout, z_b, y_b, u4_b, z_win):
     return loss
 
 
+def _unnamed(name: str):
+    """No span: a captured body's spans would be recorded once by the
+    capture and never by a replay (``utils/profiling.py::span``)."""
+    return contextlib.nullcontext()
+
+
+def _step(net: PINcNet, opt: AdamWClip, data: PINcData, idx, widx, tc: TrainConfig,
+          rp: ReducedParams, use_rollout: bool, dp: Optional[_DataParallel] = None, named=span):
+    """One minibatch: the rows ``idx`` and the windows' rows ``widx``
+    gathered, the loss, its gradient (averaged over the ranks under ``dp``,
+    with the loss) and ``opt``'s update; returns the loss, detached.
+    ``named`` makes the three spans (:func:`train_epoch`)."""
+    with named("brov2.pinc.loss"):
+        loss = _loss(net, tc, rp, use_rollout, data.z[idx], data.y[idx], data.u4[idx],
+                     data.z[widx] if use_rollout else None)
+    params = opt.params
+    with named("brov2.pinc.grad"):
+        grads = torch.autograd.grad(loss, params)
+    loss = loss.detach()
+    if dp is not None:
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        dist.all_reduce(flat, group=dp.group)
+        flat = flat / dp.world
+        grads = [g.view_as(p) for g, p in zip(flat[:-1].split([p.numel() for p in params]),
+                                               params)]
+        loss = flat[-1]
+    with named("brov2.pinc.optim"):
+        opt.step(grads)
+    return loss
+
+
+class _CapturedStep:
+    """:func:`_step` of one net, optimiser and dataset on one CUDA device,
+    as a CUDA graph: called with a minibatch's row indices and window
+    starts, it copies them into static buffers and replays the graph, which
+    gathers the rows, runs the forward, the backward, the clip and the
+    update on the net's own parameters and the optimiser's own moments and
+    count, and leaves the loss in a static tensor, which it returns.
+
+    The first call captures the step (``ops.scan.capture``: ``GRAPH_WARMUP``
+    steps on a side stream, their changes undone, then the capture), and
+    so does a call with minibatches of another shape.  In a profiler's
+    trace the warm-up and capture are the span ``brov2.pinc.capture``, and
+    everything from the first replay to :meth:`close`'s synchronise the
+    span ``brov2.pinc.replay``."""
+
+    def __init__(self, net, opt, data, tc, rp, use_rollout):
+        self.args = (net, opt, data, tc, rp, use_rollout)
+        self.offsets = torch.arange(tc.rollout_steps + 1, device=data.z.device)
+        self.shape = None
+        self.replaying = contextlib.ExitStack()
+
+    def __call__(self, idx, starts):
+        if self.shape != (idx.shape, starts.shape):
+            self._capture(idx, starts)
+        self.idx.copy_(idx)
+        self.starts.copy_(starts)
+        return self.run()
+
+    def _capture(self, idx, starts):
+        net, opt, data, tc, rp, use_rollout = self.args
+        first = self.shape is None
+        self.idx, self.starts = idx.clone(), starts.clone()
+
+        def body():
+            return _step(net, opt, data, self.idx, self.starts[:, None] + self.offsets, tc, rp,
+                         use_rollout, named=_unnamed)
+
+        with span("brov2.pinc.capture"):
+            (self.run,) = capture([body], [*opt.params, *opt.mu, *opt.nu, opt.count], True,
+                                  warmup=GRAPH_WARMUP)
+        self.shape = (idx.shape, starts.shape)
+        if first:
+            self.replaying.enter_context(span("brov2.pinc.replay"))
+
+    def close(self) -> None:
+        """Wait for the replays, end the replay span and release the graph."""
+        if self.shape is not None:
+            torch.cuda.current_stream(self.idx.device).synchronize()
+        self.replaying.close()
+        self.shape = self.run = None
+
+
 def train_epoch(net: PINcNet, opt: AdamWClip, data: PINcData, perm, starts, tc: TrainConfig,
-                rp: ReducedParams, use_rollout: bool, dp: Optional[_DataParallel] = None):
+                rp: ReducedParams, use_rollout: bool, dp: Optional[_DataParallel] = None,
+                graph: Optional[_CapturedStep] = None):
     """One epoch on given draws: ``perm (n_batches, batch)`` row indices and
     ``starts (n_batches, W)`` window starts.  Returns the mean minibatch
     loss (a 0-d tensor on the data's device, not read back).
@@ -392,36 +495,30 @@ def train_epoch(net: PINcNet, opt: AdamWClip, data: PINcData, perm, starts, tc: 
     takes them all), and the gradients and losses are averaged over the
     ranks: the gradient of the one global loss, each term counted once.
 
-    Each minibatch is three spans in a profiler's trace: ``brov2.pinc.loss``
-    (the gather and the loss), ``brov2.pinc.grad`` (the backward) and
-    ``brov2.pinc.optim`` (the update); the all-reduce lies outside them."""
-    import torch.distributed as dist
-
+    With ``graph`` (this net's and optimiser's :class:`_CapturedStep`, no
+    ``dp``) each minibatch is a replay of the captured step.  Otherwise it
+    runs eagerly, as three spans in a profiler's trace:
+    ``brov2.pinc.loss`` (the gather and the loss), ``brov2.pinc.grad``
+    (the backward) and ``brov2.pinc.optim`` (the update); the all-reduce
+    lies outside them.  :data:`STEPS` counts the minibatches of each
+    path."""
+    n = perm.shape[0]
+    if graph is not None:
+        losses = torch.empty(n, dtype=data.z.dtype, device=data.z.device)
+        for b in range(n):
+            losses[b].copy_(graph(perm[b], starts[b]))
+        STEPS["replayed"] += n
+        return losses.mean()
     offsets = torch.arange(tc.rollout_steps + 1, device=perm.device)
-    params = opt.params
     losses = []
-    for b in range(perm.shape[0]):
+    for b in range(n):
         idx, widx = perm[b], starts[b][:, None] + offsets
         if dp is not None:
             idx = idx.chunk(dp.world)[dp.rank]
             if dp.shard_windows:
                 widx = widx.chunk(dp.world)[dp.rank]
-        with span("brov2.pinc.loss"):
-            loss = _loss(net, tc, rp, use_rollout, data.z[idx], data.y[idx], data.u4[idx],
-                         data.z[widx] if use_rollout else None)
-        with span("brov2.pinc.grad"):
-            grads = torch.autograd.grad(loss, params)
-        loss = loss.detach()
-        if dp is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
-            dist.all_reduce(flat, group=dp.group)
-            flat = flat / dp.world
-            grads = [g.view_as(p) for g, p in zip(flat[:-1].split([p.numel() for p in params]),
-                                                   params)]
-            loss = flat[-1]
-        with span("brov2.pinc.optim"):
-            opt.step(grads)
-        losses.append(loss)
+        losses.append(_step(net, opt, data, idx, widx, tc, rp, use_rollout, dp))
+    STEPS["eager"] += n
     return torch.stack(losses).mean()
 
 
@@ -438,8 +535,17 @@ def epoch_draws(generator: Optional[torch.Generator], N: int, n_batches: int, ba
     return perm.reshape(n_batches, batch), starts
 
 
+def _use_graph(graph: Optional[bool], device: torch.device, mesh) -> bool:
+    """``graph`` resolved: ``None`` means a captured step exactly on one
+    CUDA device with no mesh; ``True`` off CUDA or with a mesh raises."""
+    if graph and mesh is not None:
+        raise ValueError("the CUDA-graph training runs on one device; a mesh trains eagerly")
+    return mesh is None and use_graph(graph, device)
+
+
 def train_from_draws(net: PINcNet, data: PINcData, draws: Iterable, tc: TrainConfig = TrainConfig(),
-                     rp: ReducedParams | None = None, log_every: int = 0, mesh=None):
+                     rp: ReducedParams | None = None, log_every: int = 0, mesh=None,
+                     graph: Optional[bool] = None):
     """Train ``net`` in place, one epoch for each ``(perm, starts)`` of
     ``draws`` (see :func:`train_epoch`); returns ``(net, history)``, the
     mean loss of each epoch as floats, read back once at the end.
@@ -448,9 +554,13 @@ def train_from_draws(net: PINcNet, data: PINcData, draws: Iterable, tc: TrainCon
     data-parallel over its first axis: the parameters and each epoch's
     draws are broadcast from its first rank, each minibatch splits over
     the ranks and the gradients are averaged.  The effective batch
-    ``min(tc.batch, N)`` must divide over that axis."""
+    ``min(tc.batch, N)`` must divide over that axis.  ``graph`` (default:
+    on CUDA without a mesh) captures one minibatch step as a CUDA graph
+    and replays it for every minibatch of every epoch of the call
+    (:class:`_CapturedStep`); otherwise the steps run eagerly."""
     N = data.z.shape[0]
     batch = min(tc.batch, N)
+    captured = _use_graph(graph, data.z.device, mesh)
     dp = None
     if mesh is not None:
         from bluerov2_dynamics_tpu_torch.parallel import mesh as pmesh
@@ -470,15 +580,21 @@ def train_from_draws(net: PINcNet, data: PINcData, draws: Iterable, tc: TrainCon
     n_batches = max(N // batch, 1)
     opt = make_optimizer(tc, net.parameters(), total_steps=tc.epochs * n_batches)
     use_rollout = tc.rollout_weight > 0 and tc.rollout_steps > 0 and N > tc.rollout_steps + 1
+    step = _CapturedStep(net, opt, data, tc, rp, use_rollout) if captured else None
     history = []
-    for ep, (perm, starts) in enumerate(draws):
-        perm = torch.as_tensor(perm, dtype=torch.long, device=data.z.device)
-        starts = torch.as_tensor(starts, dtype=torch.long, device=data.z.device)
-        if mesh is not None:
-            perm, starts = pmesh.replicate(mesh, (perm, starts))
-        history.append(train_epoch(net, opt, data, perm, starts, tc, rp, use_rollout, dp))
-        if log_every and (ep + 1) % log_every == 0:
-            print(f"[PINc] epoch {ep + 1:4d}/{tc.epochs} | loss ~ {float(history[-1]):.6f}")
+    try:
+        for ep, (perm, starts) in enumerate(draws):
+            perm = torch.as_tensor(perm, dtype=torch.long, device=data.z.device)
+            starts = torch.as_tensor(starts, dtype=torch.long, device=data.z.device)
+            if mesh is not None:
+                perm, starts = pmesh.replicate(mesh, (perm, starts))
+            history.append(train_epoch(net, opt, data, perm, starts, tc, rp, use_rollout, dp,
+                                       step))
+            if log_every and (ep + 1) % log_every == 0:
+                print(f"[PINc] epoch {ep + 1:4d}/{tc.epochs} | loss ~ {float(history[-1]):.6f}")
+    finally:
+        if step is not None:
+            step.close()
     return net, (torch.stack(history).double().cpu().tolist() if history else [])
 
 

@@ -41,6 +41,18 @@ WARMUP_STEPS = 3     # steps run on a side stream before a capture
 STATS = {"capture_s": 0.0}
 
 
+# one side stream a device for every warm-up: cuBLAS keeps a workspace (tens
+# of MB) for each stream it has run on, so a new stream each capture would
+# hold one more, up to the 32 of PyTorch's stream pool
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[device]
+
+
 def add_capture(seconds: float) -> None:
     """Account one capture's warm-up and capture seconds in :data:`STATS`."""
     STATS["capture_s"] += seconds
@@ -64,7 +76,7 @@ def capture(fns: Sequence[Callable], state: Sequence[torch.Tensor], graph: bool,
     dev = state[0].device
     saved = [t.detach().clone() for t in state]
     main = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(device=dev)
+    side = _side_stream(dev)
     side.wait_stream(main)
     with torch.cuda.stream(side):
         for _ in range(warmup):
@@ -123,7 +135,7 @@ def _scan_graph(f, carry, xs, n, chunk, draw):
     static_carry = [c.clone() for c in carry]
     device = static_x[0].device
     stream = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device=device)
+    side = _side_stream(device)
     side.wait_stream(stream)
     with torch.cuda.stream(side):          # warm-up off the capture, as CUDA graphs need
         c = tuple(t.clone() for t in carry)
