@@ -64,7 +64,7 @@ from bluerov2_dynamics_tpu_torch.models import sysid
 from bluerov2_dynamics_tpu_torch.models.koopman import KoopmanModel, lift
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
 from bluerov2_dynamics_tpu_torch.ops.quaternion import quat_exp, quat_log, quat_multiply
-from bluerov2_dynamics_tpu_torch.ops.scan import capture, scan, use_graph
+from bluerov2_dynamics_tpu_torch.ops.scan import _side_stream, capture, scan, use_graph
 
 _LOG2PI = 1.8378770664093453
 PF_TAG = 7          # stream tag of the particle filter's draws
@@ -789,7 +789,7 @@ def fit_noise(step: Callable, h: Callable, m0, P0, U, Y, q0=1e-4, r0=1e-2,
         # the capture's warm-up: the loss and its gradient over the first 3
         # rows, on a side stream (the same kernels as a whole iteration,
         # which eagerly costs the host seconds)
-        side = torch.cuda.Stream(device=dev)
+        side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             th = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}

@@ -535,14 +535,6 @@ def epoch_draws(generator: Optional[torch.Generator], N: int, n_batches: int, ba
     return perm.reshape(n_batches, batch), starts
 
 
-def _use_graph(graph: Optional[bool], device: torch.device, mesh) -> bool:
-    """``graph`` resolved: ``None`` means a captured step exactly on one
-    CUDA device with no mesh; ``True`` off CUDA or with a mesh raises."""
-    if graph and mesh is not None:
-        raise ValueError("the CUDA-graph training runs on one device; a mesh trains eagerly")
-    return mesh is None and use_graph(graph, device)
-
-
 def train_from_draws(net: PINcNet, data: PINcData, draws: Iterable, tc: TrainConfig = TrainConfig(),
                      rp: ReducedParams | None = None, log_every: int = 0, mesh=None,
                      graph: Optional[bool] = None):
@@ -560,7 +552,7 @@ def train_from_draws(net: PINcNet, data: PINcData, draws: Iterable, tc: TrainCon
     (:class:`_CapturedStep`); otherwise the steps run eagerly."""
     N = data.z.shape[0]
     batch = min(tc.batch, N)
-    captured = _use_graph(graph, data.z.device, mesh)
+    captured = use_graph(graph, data.z.device, mesh)
     dp = None
     if mesh is not None:
         from bluerov2_dynamics_tpu_torch.parallel import mesh as pmesh

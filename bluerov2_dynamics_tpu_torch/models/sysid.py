@@ -57,6 +57,7 @@ from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
     thruster_consts,
 )
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
+from bluerov2_dynamics_tpu_torch.ops.scan import capture, use_graph
 from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 # Nominal Table A1 coefficient vector in the generator's perturbation
@@ -249,9 +250,10 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
               warmup: int = GRAPH_WARMUP, stats: Optional[dict] = None):
     """Full-batch Adam over ``steps`` iterations: returns ``(theta, losses
     (steps,))``, the loss of each iteration at the parameters it starts
-    from.  ``graph``: capture one iteration as a CUDA graph and replay it
-    (a failed capture raises); otherwise the eager loop.  ``reduce(flat)``
-    sums the loss and the gradients over the ranks of a mesh.  ``warmup``
+    from.  ``graph``: capture one iteration as a CUDA graph
+    (``ops.scan.capture``) and replay it; otherwise the eager loop.
+    ``reduce(flat)`` sums the loss and the gradients over the ranks of a
+    mesh (eager only).  ``warmup``
     iterations run on a side stream before the capture (their state
     changes are undone).  A ``stats`` dict receives, on the graph path, the
     host seconds of the warm-up and capture (``"capture_s"``) and the
@@ -260,9 +262,7 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
     iteration's replay (``"replay"``), to trace it.  In a profiler's trace
     the graph path's warm-up and capture are the span
     ``brov2.sysid.capture`` and its replays, synchronise included,
-    ``brov2.sysid.replay``.  The kernels' launch counts (``_build.launches``)
-    count what the device runs: the warm-up's launches and, for each
-    replay, the launches its capture recorded (the capture runs none)."""
+    ``brov2.sysid.replay``."""
     names = sorted(theta0)
     theta = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}
     leaves = [theta[k] for k in names]
@@ -289,46 +289,23 @@ def _run_adam(loss_fn: Callable, theta0: dict, steps: int, lr: float,
             for i in range(steps):
                 hist[i] = iteration()
         elif steps > 0:
-            if reduce is not None:
-                raise ValueError("the CUDA-graph fit runs on one device; a mesh fit runs eagerly")
+            state = leaves + mu + nu + [count]
             with span("brov2.sysid.capture"):
                 t_start = time.perf_counter()
-                state = leaves + mu + nu + [count]
-                saved = [t.detach().clone() for t in state]
-                side = torch.cuda.Stream(device=first.device)
-                side.wait_stream(torch.cuda.current_stream(first.device))
-                with torch.cuda.stream(side):
-                    for _ in range(warmup):
-                        iteration()
-                torch.cuda.current_stream(first.device).wait_stream(side)
-                with torch.no_grad():
-                    for t, s in zip(state, saved):
-                        t.copy_(s)
-                counted = dict(_build.launches)
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g):
-                    static_loss = iteration()
-                captured = {k: n - counted[k] for k, n in _build.launches.items()
-                            if n != counted[k]}
-                _build.launches.update(counted)     # a capture launches nothing
+                (run,) = capture([iteration], state, True, warmup=warmup)
                 t_captured = time.perf_counter()
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             with span("brov2.sysid.replay"):
                 events[0].record()
                 for i in range(steps):
-                    g.replay()
-                    hist[i].copy_(static_loss)
+                    hist[i].copy_(run())
                 events[1].record()
                 torch.cuda.current_stream(first.device).synchronize()
-            for k, n in captured.items():       # a replay launches what its capture recorded
-                _build.launches[k] += n * steps
             if stats is not None:
                 stats["capture_s"] = t_captured - t_start
                 stats["replay_ms"] = events[0].elapsed_time(events[1]) / steps
                 if stats.pop("keep", False):
-                    # the replay holds the graph and the memory it writes alive
-                    stats["replay"] = lambda g=g, held=(state, static_loss): g.replay()
-            del g
+                    stats["replay"] = run
     return {k: v.detach() for k, v in theta.items()}, hist
 
 
@@ -599,14 +576,6 @@ def _takes_kernel(method: str, use_graph: bool, mesh, dtype) -> bool:
     return method == "euler" and use_graph and mesh is None and dtype == torch.float32
 
 
-def _use_graph(graph: Optional[bool], device: torch.device, mesh) -> bool:
-    if graph is None:
-        return device.type == "cuda" and mesh is None
-    if graph and device.type != "cuda":
-        raise ValueError("graph=True needs CUDA tensors")
-    return bool(graph)
-
-
 def fit_thruster(
     X,
     U,
@@ -650,14 +619,13 @@ def fit_thruster(
     kernel (``csrc/sysid_window.cu``), else from autograd.
     """
     device = _device_of(X, device)
-    use_graph = _use_graph(graph, device, mesh)
-    kernel = _takes_kernel(method, use_graph, mesh, dtype)
+    graph = use_graph(graph, device, mesh)
+    kernel = _takes_kernel(method, graph, mesh, dtype)
     wl, kernel_fn = _thruster_loss(
         X, U, dt, horizon, kernel, method=method, use_lag=use_lag, lag_warmup=lag_warmup,
         fit_gains=fit_gains, fit_current=fit_current, input_delay=input_delay, cfg=cfg,
         lag=lag, mesh=mesh, dtype=dtype, device=device)
-    theta, losses = _run_adam(kernel_fn or wl.loss_fn, wl.theta0, steps, lr, use_graph,
-                              wl.reduce)
+    theta, losses = _run_adam(kernel_fn or wl.loss_fn, wl.theta0, steps, lr, graph, wl.reduce)
     stderr = None
     if compute_stderr:
         stderr = _laplace_stderr(wl.loss_fn, theta, horizon * wl.n_start * 12, wl.reduce)
@@ -703,7 +671,7 @@ def fit_wrench(
     wl = wrench_loss(X, TAU, dt, horizon, method=method, state=state, fit_current=fit_current,
                      input_delay=input_delay, mesh=mesh, dtype=dtype, device=device)
     theta, losses = _run_adam(wl.loss_fn, wl.theta0, steps, lr,
-                              _use_graph(graph, device, mesh), wl.reduce)
+                              use_graph(graph, device, mesh), wl.reduce)
     stderr = None
     if compute_stderr:
         n_state = 12 if state == "euler12" else 13

@@ -29,6 +29,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from bluerov2_dynamics_tpu_torch.ops._build import launches
+
 GRAPH_CHUNK = 64     # steps captured in one CUDA graph and replayed
 WARMUP_STEPS = 3     # steps run on a side stream before a capture
 
@@ -66,8 +68,10 @@ def capture(fns: Sequence[Callable], state: Sequence[torch.Tensor], graph: bool,
     function itself, or with ``graph`` the replay of its CUDA graph, which
     returns the outputs of the capture (static tensors, overwritten by the
     next replay).  ``warmup`` rounds of calls run on a side stream first
-    and the state they change is restored.  A failed capture raises.
-    ``stats`` receives the capture's host seconds and, with
+    and the state they change is restored.  A failed capture raises.  The
+    kernels' launch counts (``ops._build.launches``) count what the device
+    runs: a capture launches nothing, and each replay what its capture
+    recorded.  ``stats`` receives the capture's host seconds and, with
     ``stats["keep"]`` set, the replays under ``stats["replay"]`` (keyed by
     ``names``), to trace them."""
     if not graph:
@@ -88,10 +92,13 @@ def capture(fns: Sequence[Callable], state: Sequence[torch.Tensor], graph: bool,
             t.copy_(s)
     runs = []
     for f in fns:
+        counted = dict(launches)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             out = f()
-        runs.append(lambda g=g, out=out: (g.replay(), out)[1])
+        recorded = [(k, n - counted[k]) for k, n in launches.items() if n != counted[k]]
+        launches.update(counted)
+        runs.append(_replay(g, out, recorded, state))
     secs = time.perf_counter() - t0
     add_capture(secs)
     if stats is not None:
@@ -101,11 +108,26 @@ def capture(fns: Sequence[Callable], state: Sequence[torch.Tensor], graph: bool,
     return runs
 
 
-def use_graph(graph: Optional[bool], device: torch.device) -> bool:
+def _replay(g, out, recorded, state):
+    """The replay of the graph ``g``: it returns the capture's outputs
+    ``out`` and counts the launches the capture ``recorded``."""
+    def run():
+        g.replay()
+        for k, n in recorded:
+            launches[k] += n
+        return out
+    run.state = state       # the tensors the graph reads and writes live as long as it
+    return run
+
+
+def use_graph(graph: Optional[bool], device: torch.device, mesh=None) -> bool:
     """``graph`` resolved for tensors on ``device``: ``None`` means CUDA
-    graphs exactly on a CUDA device; ``True`` off CUDA raises."""
+    graphs exactly on a CUDA device with no ``mesh``; ``True`` off CUDA or
+    with a mesh raises (a mesh's loops run eagerly)."""
     if graph is None:
-        return device.type == "cuda"
+        return device.type == "cuda" and mesh is None
+    if graph and mesh is not None:
+        raise ValueError("a CUDA graph runs on one device; a mesh runs eagerly")
     if graph and device.type != "cuda":
         raise ValueError("graph=True needs CUDA tensors")
     return bool(graph)

@@ -153,21 +153,43 @@ def test_plain_batched_rollout_matches_pallas_interpret(method, use_lag, rng):
 # the block
 EDGE_T, EDGE_B = (1, 3, 7), (1, 65, 130)
 EDGE_RUNS = [("euler", True), ("rk4", True), ("euler", False), ("rk4", False)]
+# the cases whose Pallas run at their own B differs in the last bits from the
+# first rows of the run at the largest B (up to 3e-8, XLA's CPU code for
+# another batch width): they keep a compile of their own
+EDGE_OWN_RUN = {(1, 1, "euler", True), (1, 1, "rk4", True)}
+_edge_runs = {}
+
+
+def _edge_case(T, B, method, use_lag):
+    """The inputs of the ``(T, B)`` edge case and the Pallas kernel's
+    result on them, in interpret mode: one compile and run a ``(T, method,
+    use_lag)`` at the largest B, whose first B rows a smaller B takes (the
+    trajectories are independent), inputs drawn once a T."""
+    own = (T, B, method, use_lag) in EDGE_OWN_RUN
+    key = (T, B, method, use_lag) if own else (T, method, use_lag)
+    if key not in _edge_runs:
+        (jp, jcfg, jlag), _ = _params()
+        x0, U = _batched_inputs(np.random.default_rng(0), B=max(EDGE_B), T=T)
+        if own:
+            x0, U = x0[:B], U[:, :B]
+        want = jpe.make_batched_rollout_pallas(jp, jcfg, jlag, 0.02, method=method, block_b=64,
+                                               interpret=True, use_lag=use_lag)(
+            jnp.asarray(x0), jnp.asarray(U))
+        _edge_runs[key] = x0, U, np.asarray(want)
+    x0, U, want = _edge_runs[key]
+    return x0[:B], np.ascontiguousarray(U[:, :B]), want[:B]
 
 
 @pytest.mark.parametrize("method,use_lag", EDGE_RUNS)
 @pytest.mark.parametrize("B", EDGE_B)
 @pytest.mark.parametrize("T", EDGE_T)
-def test_plain_batched_rollout_matches_pallas_at_edge_shapes(T, B, method, use_lag, rng):
-    (jp, jcfg, jlag), (tp, tcfg, tlag) = _params()
-    x0, U = _batched_inputs(rng, B=B, T=T)
-    want = jpe.make_batched_rollout_pallas(jp, jcfg, jlag, 0.02, method=method, block_b=64,
-                                           interpret=True, use_lag=use_lag)(
-        jnp.asarray(x0), jnp.asarray(U))
+def test_plain_batched_rollout_matches_pallas_at_edge_shapes(T, B, method, use_lag):
+    _, (tp, tcfg, tlag) = _params()
+    x0, U, want = _edge_case(T, B, method, use_lag)
     got = ce.batched_rollout_plain(tp, tcfg, tlag, torch.from_numpy(x0), torch.from_numpy(U),
                                    0.02, method, use_lag)
     assert got.shape == (B, 12)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_ROWS)
+    np.testing.assert_allclose(got.numpy(), want, **TOL_ROWS)
 
 
 @pytest.mark.parametrize("B", (*EDGE_B, 300))

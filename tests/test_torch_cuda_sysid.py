@@ -15,7 +15,8 @@ steps at rtol 1e-4 on the losses and atol 1e-5 on the fitted parameters;
 the fit on the card against the same fit on the host CPU at rtol 1e-3 on
 the loss history; the kernels' endpoints against their plain versions at
 atol 2e-5 and the fused sums at rtol 1e-5, the same bits on ten calls
-(``chip_smoke.py``'s bounds).
+(``chip_smoke.py``'s bounds).  Every graph fit captures through
+``ops/scan.py::capture``, on the one side stream of the device.
 """
 
 import functools
@@ -214,3 +215,35 @@ def test_a_kernel_fit_counts_its_replays_and_warm_up(cuda):
     torch.cuda.synchronize()
     rose = {k: n - before[k] for k, n in _build.launches.items() if n != before[k]}
     assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP}     # the capture runs none
+
+
+@pytest.mark.cuda
+def test_graph_fits_capture_on_the_scan_modules_side_stream(cuda):
+    """Two graph fits and a graph noise fit in a row capture through
+    ``ops/scan.py::capture``: each capture adds its seconds to
+    ``scan.STATS["capture_s"]``, one side stream serves the device, and a
+    kernel fit counts ``sysid_window`` once for each warm-up iteration and
+    each replay (the capture none)."""
+    from bluerov2_dynamics_tpu_torch.models import estimation as est
+    from bluerov2_dynamics_tpu_torch.models import fossen
+    from bluerov2_dynamics_tpu_torch.models.params import fossen_params
+    from bluerov2_dynamics_tpu_torch.ops import scan
+
+    X, U, TAU, _ = _record(cuda)
+    steps = 4
+    for _ in range(2):
+        before, counted = scan.STATS["capture_s"], dict(_build.launches)
+        sysid.fit_thruster(X, U, DT, horizon=10, steps=steps, lr=0.02, graph=True)
+        torch.cuda.synchronize()
+        assert scan.STATS["capture_s"] > before
+        rose = {k: n - counted[k] for k, n in _build.launches.items() if n != counted[k]}
+        assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP}
+        side = scan._SIDE_STREAMS[X.device]
+    step = fossen.make_wrench_step(fossen_params(device=cuda), DT, "euler", "euler12")
+    m0, Us, Ys = est.segment_trajectory(TAU[:299], X[:300], 50)
+    before, stats = scan.STATS["capture_s"], {}
+    est.fit_noise(step, lambda x: x, m0, 1e-2 * torch.eye(12, device=cuda), Us, Ys, q0=1e-6,
+                  r0=1e-4, steps=2, graph=True, stats=stats)
+    assert 0 < scan.STATS["capture_s"] - before <= stats["capture_s"]
+    assert [d for d in scan._SIDE_STREAMS if d == X.device] == [X.device]
+    assert scan._SIDE_STREAMS[X.device] is side

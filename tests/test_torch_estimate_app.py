@@ -36,6 +36,7 @@ from bluerov2_dynamics_tpu_torch.models import estimation as test_  # noqa: E402
 from bluerov2_dynamics_tpu_torch.models import koopman as tkoopman  # noqa: E402
 
 from test_torch_estimation import jax_pf_draws  # noqa: E402
+from test_torch_koopman_apps import jax_timers_once  # noqa: E402,F401  (autouse)
 
 N_CSV = 400
 N_SYN = 200

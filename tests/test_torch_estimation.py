@@ -326,7 +326,7 @@ def noise_case(linear):
         return -jnp.sum(ll) / (Y.shape[0] * Y.shape[1])
 
     theta0 = {"log_q": jnp.log(jnp.full(4, 3e-3)), "log_r": jnp.log(jnp.full(3, 0.1))}
-    return (np.asarray(m0), np.asarray(U), np.asarray(Y)), kw, fit, jax.grad(negll)(theta0)
+    return (np.asarray(m0), np.asarray(U), np.asarray(Y)), kw, fit, jax.jit(jax.grad(negll))(theta0)
 
 
 def test_fit_noise_matches_jax(noise_case, linear):
@@ -368,7 +368,7 @@ def test_fit_noise_gradient_through_the_fossen_jacobian(fossen_case):
         return -jnp.sum(ll)
 
     lq0 = np.log(np.full(12, 1e-4))
-    want = jax.grad(jnegll)(jnp.asarray(lq0))
+    want = jax.jit(jax.grad(jnegll))(jnp.asarray(lq0))
     lq = t(lq0).requires_grad_()
     ll = est.ekf(tstep, lambda x: x, torch.diag(torch.exp(lq)), t(c["R"]), t(m0), t(c["P0"]),
                  t(U), t(Y), batched=True).loglik

@@ -47,6 +47,8 @@ from bluerov2_dynamics_tpu_torch.apps import tank_rk4 as tt5  # noqa: E402
 from bluerov2_dynamics_tpu_torch.apps import tank_wrench_comp as tt3  # noqa: E402
 from bluerov2_dynamics_tpu_torch.apps import tank_wrench_quat as tt4  # noqa: E402
 
+from test_torch_koopman_apps import jax_timers_once  # noqa: E402,F401  (autouse)
+
 N_ROWS = 600
 RTOL = 1e-4
 COMMON = ["--no-media", "--n-rbfs", "16", "--open-loop-steps", "60"]

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from bluerov2_dynamics_tpu_torch.models import params, pinc
+from bluerov2_dynamics_tpu_torch.ops import scan
 
 BATCH, N_BATCHES, EPOCHS = 64, 6, 2
 TC = pinc.TrainConfig(epochs=EPOCHS, batch=BATCH, rollout_steps=5, rollout_windows=4)
@@ -60,8 +61,8 @@ def _steps_of(fn):
 @pytest.mark.parametrize("device,mesh,want", [("cuda", False, True), ("cuda", True, False),
                                               ("cpu", False, False), ("cpu", True, False)])
 def test_the_default_path_follows_the_device_and_the_mesh(device, mesh, want):
-    assert pinc._use_graph(None, torch.device(device), object() if mesh else None) is want
-    assert pinc._use_graph(False, torch.device(device), object() if mesh else None) is False
+    assert scan.use_graph(None, torch.device(device), object() if mesh else None) is want
+    assert scan.use_graph(False, torch.device(device), object() if mesh else None) is False
 
 
 def test_cpu_trains_eagerly_and_refuses_a_graph():

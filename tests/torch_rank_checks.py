@@ -1,10 +1,20 @@
-"""Inputs and rank-side work of ``tests/test_torch_parallel.py``.
+"""Inputs and rank-side work of ``tests/test_torch_parallel.py``, and the
+port tests' one intra-op thread.
 
 A module of its own, importing torch, numpy and the port only, because
 ``parallel.launch.run_ranks`` starts each rank in a fresh interpreter that
 imports the function it runs by its module: the ranks then never import
 JAX.  The inputs are made with numpy from a seed, so that the ranks and
 the JAX side of the test build the same arrays.
+
+Importing it sets torch to one intra-op thread.  The suite runs several
+pytest workers on as many cores; a worker's default pool of a thread a
+core then contends with the others', and MKL's LAPACK wakes its threads
+for every small call: a 3 x 3 Cholesky of the port's Riccati loop takes
+15-26 ms in a loaded worker against 5 us on one thread.  Every worker
+imports every test file before it runs a test, and
+``tests/test_torch_parallel.py`` and ``tests/test_torch_pinc.py`` import
+this module.
 """
 
 from __future__ import annotations
@@ -13,6 +23,8 @@ import os
 
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 DT = 0.02
 WORLD = 4
@@ -352,7 +364,11 @@ def hang_on_rank_1(rank: int, world: int):
 
 
 def die_on_rank_2(rank: int, world: int):
+    """Rank 2 exits with code 3 once every rank has joined the group (a
+    death while the others still connect to it makes them raise first)."""
     import os
+    import torch.distributed as dist
+    dist.barrier()
     if rank == 2:
         os._exit(3)
     return rank
