@@ -19,7 +19,9 @@ graph is held against.  A thruster fit by Euler in that graph takes its
 loss and gradient from one CUDA kernel (``csrc/sysid_window.cu``, through
 :class:`_KernelWindowLoss`) in place of autograd's thousands of launches;
 the autograd loss of :func:`thruster_loss` is its plain version, and stays
-the loss of every other path.  With ``mesh=`` each rank takes its contiguous
+the loss of every other path.  The lag warm start, the filter states over
+the whole recording, is one launch of ``csrc/lag_history.cu`` on the card
+(:func:`lag_history`).  With ``mesh=`` each rank takes its contiguous
 block of starts and the ranks all-reduce the loss and the gradients, so
 the objective stays the global mean; that path runs eagerly.
 
@@ -48,7 +50,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
     lag_params,
     thruster_config,
 )
-from bluerov2_dynamics_tpu_torch.models.thrusters import static_thrust
+from bluerov2_dynamics_tpu_torch.models.thrusters import lag_history_chunked, static_thrust
 from bluerov2_dynamics_tpu_torch.ops import _build
 from bluerov2_dynamics_tpu_torch.ops.cuda_eval import check_aligned
 from bluerov2_dynamics_tpu_torch.ops.cuda_rollout import (
@@ -203,18 +205,49 @@ def lag_history(cfg: ThrusterConfig, lag: LagParams, U):
     state and of every fitted coefficient, so the history is computed once
     a fit.  A window that starts its lag from zero carries a thrust error
     for the filter's ~0.3 s settling time, which a gradient fit would bend
-    the coefficients to absorb.  The call is the span
+    the coefficients to absorb.  On a CUDA tensor the scan is one launch
+    of ``csrc/lag_history.cu`` (float32 or float64); on the CPU its plain
+    version, ``thrusters.lag_history_chunked``.  The call is the span
     ``brov2.sysid.lag_history`` in a profiler's trace.
     """
     with span("brov2.sysid.lag_history"):
         F_cmd = static_thrust(cfg, U)
-        L = torch.zeros((8, 3), dtype=F_cmd.dtype, device=F_cmd.device)
-        AdT = lag.Ad.T
-        hist = []
-        for k in range(F_cmd.shape[0]):
-            hist.append(L)
-            L = L @ AdT + F_cmd[k][..., None] * lag.Bd       # thrusters.lag_step's state update
-        return torch.stack(hist) if hist else L.new_zeros((0, 8, 3))
+        if F_cmd.is_cuda:
+            return _launch_lag_history(lag, F_cmd)
+        return lag_history_chunked(lag, F_cmd)
+
+
+def _launch_lag_history(lag: LagParams, F_cmd):
+    """One launch of ``csrc/lag_history.cu`` on the current stream: the
+    history ``(N, 8, 3)`` of the thrusts ``F_cmd``, with ``lag.Ad`` and
+    ``lag.Bd`` read on the device (no read-back, no synchronise).  Raises
+    on what the kernel does not take: another device or type than
+    ``F_cmd``'s, a type other than float32 or float64, a shape other than
+    ``(N, 8)``, ``(3, 3)`` and ``(3,)``, a non-contiguous tensor."""
+    if F_cmd.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"F_cmd must be float32 or float64, got {F_cmd.dtype}")
+    for name, t, shape in (("F_cmd", F_cmd, (F_cmd.shape[0], 8)), ("Ad", lag.Ad, (3, 3)),
+                           ("Bd", lag.Bd, (3,))):
+        if t.dtype != F_cmd.dtype:
+            raise TypeError(f"{name} must be {F_cmd.dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != F_cmd.device:
+            raise ValueError(f"{name} must be on {F_cmd.device}, got {t.device}")
+    if not F_cmd.is_cuda:
+        raise ValueError(f"F_cmd must be a CUDA tensor, got {F_cmd.device}")
+    hist = torch.empty((F_cmd.shape[0], 8, 3), dtype=F_cmd.dtype, device=F_cmd.device)
+    lib = _build.load_library("lag_history")
+    with torch.cuda.device(F_cmd.device):
+        code = lib.brov2_lag_history(
+            lag.Ad.data_ptr(), lag.Bd.data_ptr(), F_cmd.data_ptr(), hist.data_ptr(),
+            F_cmd.shape[0], int(F_cmd.dtype == torch.float64),
+            torch.cuda.current_stream(F_cmd.device).cuda_stream)
+    _build.check(lib, code, "lag_history")
+    _build.launches["lag_history"] += 1
+    return hist
 
 
 def _flat(theta: dict, names) -> torch.Tensor:

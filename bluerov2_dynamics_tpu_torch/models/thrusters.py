@@ -39,6 +39,52 @@ def lag_step(lag: LagParams, state, F_cmd):
     return new_state, F_dyn
 
 
+def lag_history_chunked(lag: LagParams, F_cmd, chunk: int = 256, lanes: int = 32):
+    """The lag states ``(N, 8, 3)`` before each of the thrusts ``F_cmd
+    (N, 8)``, from rest, in the association order of the CUDA lane scans
+    (``csrc/lag_history.cu``, ``csrc/rollout.cu::tau_chunk_scan``): for each
+    chunk of ``chunk`` rows, each of ``lanes`` lanes runs its ``chunk //
+    lanes`` rows from rest (lane 0 from the chunk's start state); an
+    inclusive scan combines the lanes' maps ``x -> P x + e`` (``P =
+    Ad^(chunk // lanes)`` by squaring, level ``s`` adding ``P^(2^s)`` times
+    the lane ``2^s`` before); each lane then reruns its rows from the end
+    state of the lane before it, keeping the state before each row, and the
+    last lane's end state starts the next chunk.  ``chunk`` and ``lanes``
+    are powers of two.  Plain PyTorch (a loop over chunks)."""
+    N, m = F_cmd.shape[0], chunk // lanes
+    AdT, Bd = lag.Ad.T, lag.Bd
+    P = lag.Ad
+    for _ in range(m.bit_length() - 1):
+        P = P @ P
+    powers = [P]
+    for _ in range(lanes.bit_length() - 2):
+        powers.append(powers[-1] @ powers[-1])
+    hist = F_cmd.new_empty((N, 8, 3))
+    carry = F_cmd.new_zeros((8, 3))
+    for t0 in range(0, N, chunk):
+        n = min(chunk, N - t0)
+        f = F_cmd.new_zeros((lanes * m, 8))
+        f[:n] = F_cmd[t0:t0 + n]
+        f = f.reshape(lanes, m, 8, 1)
+        # a lane past the last row advances on zeros here, where the kernels
+        # skip the row: only its own (unused) states differ
+        e = F_cmd.new_zeros((lanes, 8, 3))
+        e[0] = carry
+        for i in range(m):
+            e = e @ AdT + f[:, i] * Bd          # lag_step's state update
+        for s, Ps in enumerate(powers):
+            d = 1 << s
+            e = torch.cat([e[:d], e[:-d] @ Ps.T + e[d:]])
+        x = torch.cat([carry[None], e[:-1]])
+        out = []
+        for i in range(m):
+            out.append(x)
+            x = x @ AdT + f[:, i] * Bd
+        hist[t0:t0 + n] = torch.stack(out, dim=1).reshape(lanes * m, 8, 3)[:n]
+        carry = x[-1]
+    return hist
+
+
 def init_lag_state(batch_shape=(), dtype=torch.float32, device=None):
     """Zero (at-rest) lag state of shape ``batch_shape + (8, 3)``."""
     return torch.zeros((*batch_shape, 8, 3), dtype=dtype, device=device)

@@ -69,6 +69,10 @@ _SIGNATURES = {
         "brov2_sysid_window_plan": ([_I, _I, _I, _I, _I, _P], _I),
         "brov2_error_string": ([_I], ctypes.c_char_p),
     },
+    "lag_history": {
+        "brov2_lag_history": ([_P, _P, _P, _P, _I, _I, _P], _I),
+        "brov2_error_string": ([_I], ctypes.c_char_p),
+    },
     "probes": {
         "brov2_probe_fma": ([_P, _P, _I, _I, _I, _P], _I),
         "brov2_probe_sin": ([_P, _P, _I, _I, _I, _P], _I),
@@ -83,7 +87,7 @@ launches = {"shared_tau": 0, "rollout_final": 0, "window_eval": 0, "batched_roll
             "window_eval_wrench": 0, "window_eval_quat": 0, "rollout_final_quat": 0,
             "window_sq": 0, "window_sq_wrench": 0, "window_sq_quat": 0,
             "fma_peak": 0, "transcendental_peak": 0, "fma_tree_peak": 0, "quat_mix_peak": 0,
-            "sysid_window": 0}
+            "sysid_window": 0, "lag_history": 0}
 _libs: dict = {}
 
 

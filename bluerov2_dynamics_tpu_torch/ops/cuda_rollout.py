@@ -44,6 +44,7 @@ from bluerov2_dynamics_tpu_torch.models.params import (
     ThrusterConfig,
 )
 from bluerov2_dynamics_tpu_torch.models.thrusters import (
+    lag_history_chunked,
     lag_step,
     static_thrust,
     wrench_from_thrust,
@@ -156,48 +157,46 @@ TAU_CHUNK, TAU_LANES = 256, 32
 def shared_tau_sequence_chunked(cfg: ThrusterConfig, lag: LagParams, U, use_lag: bool = True,
                                 chunk: int = TAU_CHUNK, lanes: int = TAU_LANES):
     """The wrench sequence ``(T, 6)`` of :func:`shared_tau_sequence` in the
+    kernel's association order: the lag states of
+    ``thrusters.lag_history_chunked`` (the lane scan over chunks of
+    ``chunk`` steps), each advanced by its step's thrust and read out.
+    Plain PyTorch (a loop over chunks)."""
+    cfg, lag = cfg.to(U.device), lag.to(U.device)
+    F_cmd = static_thrust(cfg, U)
+    if not use_lag:
+        return wrench_from_thrust(cfg, F_cmd)
+    state = torch.zeros((8, 3), dtype=U.dtype, device=U.device)
+    F = []
+    for t in range(U.shape[0]):
+        state, F_t = lag_step(lag, state, F_cmd[t])
+        F.append(F_t)
+    F = torch.stack(F) if F else F_cmd
+    return wrench_from_thrust(cfg, F)
+
+
+# csrc/rollout.cu: kTauChunk steps a chunk of the prologue, kLanes lanes
+# (one warp) a thruster's lag scan
+TAU_CHUNK, TAU_LANES = 256, 32
+
+
+def shared_tau_sequence_chunked(cfg: ThrusterConfig, lag: LagParams, U, use_lag: bool = True,
+                                chunk: int = TAU_CHUNK, lanes: int = TAU_LANES):
+    """The wrench sequence ``(T, 6)`` of :func:`shared_tau_sequence` in the
     kernel's association order: for each chunk of ``chunk`` steps, each of
     ``lanes`` lanes runs its ``chunk // lanes`` steps from rest (lane 0
     from the chunk's start state); an inclusive scan combines the lanes'
     maps ``x -> P x + e`` (``P = Ad^(chunk // lanes)`` by squaring, level
     ``s`` adding ``P^(2^s)`` times the lane ``2^s`` before); each lane then
     reruns its steps from the end state of the lane before it, and the last
-    lane's end state starts the next chunk.  ``chunk`` and ``lanes`` are
-    powers of two.  Plain PyTorch (a loop over chunks)."""
+    lane's end state starts the next chunk (the states of
+    ``thrusters.lag_history_chunked``).  ``chunk`` and ``lanes`` are powers
+    of two.  Plain PyTorch (a loop over chunks)."""
     cfg, lag = cfg.to(U.device), lag.to(U.device)
     F_cmd = static_thrust(cfg, U)
     if not use_lag:
         return wrench_from_thrust(cfg, F_cmd)
-    T, m = U.shape[0], chunk // lanes
-    P = lag.Ad
-    for _ in range(m.bit_length() - 1):
-        P = P @ P
-    powers = [P]
-    for _ in range(lanes.bit_length() - 2):
-        powers.append(powers[-1] @ powers[-1])
-    carry = torch.zeros((8, 3), dtype=U.dtype, device=U.device)
-    F = torch.empty_like(F_cmd)
-    for t0 in range(0, T, chunk):
-        n = min(chunk, T - t0)
-        f = torch.zeros((lanes * m, 8), dtype=U.dtype, device=U.device)
-        f[:n] = F_cmd[t0:t0 + n]
-        f = f.reshape(lanes, m, 8)
-        # a lane past the last step advances on zeros here, where the kernel
-        # skips the step: only its own (unused) end state differs
-        e = torch.zeros((lanes, 8, 3), dtype=U.dtype, device=U.device)
-        e[0] = carry
-        for i in range(m):
-            e, _ = lag_step(lag, e, f[:, i])
-        for s, Ps in enumerate(powers):
-            d = 1 << s
-            e = torch.cat([e[:d], e[:-d] @ Ps.T + e[d:]])
-        x = torch.cat([carry[None], e[:-1]])
-        out = []
-        for i in range(m):
-            x, F_i = lag_step(lag, x, f[:, i])
-            out.append(F_i)
-        F[t0:t0 + n] = torch.stack(out, dim=1).reshape(lanes * m, 8)[:n]
-        carry = x[-1]
+    hist = lag_history_chunked(lag, F_cmd, chunk, lanes)
+    _, F = lag_step(lag, hist, F_cmd)
     return wrench_from_thrust(cfg, F)
 
 

@@ -63,12 +63,18 @@ Phases (any failure raises and ends the run with a non-zero code):
      20 steps, the graph fit (its loss and gradient from the window-loss
      kernel ``sysid_window``) against the eager autograd loop at rtol
      1e-4 and its launches, and an RK4 graph fit against its eager loop
-     bit for bit; ``sysid_window`` against autograd's loss and gradient at
-     T6's start and fitted points (rtol 1e-5; 1e-4 of the largest
-     gradient entry), timed against its plain version and its bound; the
-     window loss and its gradient at T6's fitted point against float64 on
-     the host CPU; K2 (Euler, RK4), K4 and K5 under fitted values in both forms
-     against their plain versions; then, in phase 6, ``mesh=`` at world 1
+     bit for bit, with one lag-history launch; ``sysid_window`` against
+     autograd's loss and gradient at T6's start and fitted points (rtol
+     1e-5; 1e-4 of the start point's largest gradient entry, the fitted
+     point's gradient being rounding), and its gradient there against
+     float64 on the host CPU (the same 1e-4), timed against its plain
+     version and its bound; the window loss and its gradient at T6's
+     fitted point against float64 on the host CPU; K2 (Euler, RK4), K4 and
+     K5 under fitted values in both forms against their plain versions;
+     the lag-history kernel ``lag_history`` at 36,658 rows against its
+     float64 plain version on the host CPU (1e-5 of the history's largest
+     magnitude), timed against its plain version and its bound
+     (``kernels`` line); then, in phase 6, ``mesh=`` at world 1
      on the one-rank NCCL group against ``mesh=None``.  Timed: the fits,
      an eager iteration, the stderrs (and their peak memory); the
      profiler's device events and busy share of an eager iteration and of
@@ -264,6 +270,8 @@ FIT_KERNEL_TOL = {"losses": 1e-4, "params": 1e-5}
 WINDOW_KERNEL_TOL = {"loss": 1e-5, "grad": 1e-4}
 SQ_ERR_OPS = 3                      # per state component of an error: sub, mul, add
 WINDOW_TIMED = 20                   # window-loss kernel launches in its timed graph
+LAG_ROWS = 36_658                   # the lag history at a tank recording's training split
+LAG_TOL = 1e-5                      # float32 kernel off the float64 plain version, of max|hist|
 ZERO_NOMINAL = (12, 14, 16)         # Yv, Kp, Nr: zero in Table A1, unidentifiable (inf stderr)
 # the window loss and its gradient on the card (float32) against float64 on
 # the host CPU at T6's start and fitted points (at the fitted point, where
@@ -667,6 +675,58 @@ def fitted_row(app, run, plain_sq, X, U, nominal, card) -> dict:
                 current=None if res.current is None else res.current.tolist())
 
 
+def lag_history_entry(dev, card, launches: int) -> dict:
+    """The lag-history kernel (``csrc/lag_history.cu``) at LAG_ROWS rows of
+    smooth commands, float32: its gap to the float64 plain version
+    (``thrusters.lag_history_chunked``, which the tests hold against the
+    serial loop and the JAX package) on the host CPU beside the float32
+    plain version's own there, against LAG_TOL of the history's largest
+    magnitude; its device time by CUDA events over 20 launches, its plain
+    version's on the card, and its bound (each byte of F_cmd read and of
+    hist written once).  ``launches`` is the kernel's count in the T6 graph
+    fit of ``fit_checks``.  Returns the ``kernels`` entry."""
+    from bluerov2_dynamics_tpu_torch.eval.timing import cuda_event_time
+    from bluerov2_dynamics_tpu_torch.models import sysid
+    from bluerov2_dynamics_tpu_torch.models.params import lag_params, thruster_config
+    from bluerov2_dynamics_tpu_torch.models.thrusters import lag_history_chunked, static_thrust
+
+    U = ar1_commands(np.random.default_rng(SEED + 21), LAG_ROWS)
+    cpu = torch.device("cpu")
+
+    def inputs(dtype, device):
+        """``(lag, F_cmd)`` of the commands in ``dtype`` on ``device``."""
+        cfg = thruster_config(dtype=dtype, device=device)
+        return (lag_params(DT, dtype=dtype, device=device),
+                static_thrust(cfg, torch.as_tensor(U, dtype=dtype, device=device)))
+
+    want = lag_history_chunked(*inputs(torch.float64, cpu))
+    scale = float(want.abs().max())
+    gap = lambda h: float((h.double().cpu() - want).abs().max()) / scale  # noqa: E731
+    lag, F = inputs(torch.float32, dev)
+    got = sysid.lag_history(thruster_config(device=dev), lag, torch.as_tensor(U, device=dev))
+    gaps = {"kernel": gap(got), "plain_float32_host": gap(lag_history_chunked(*inputs(
+        torch.float32, cpu))), "plain_on_card": gap(lag_history_chunked(lag, F))}
+    k_ms = cuda_event_time(lambda: sysid._launch_lag_history(lag, F), iters=20)
+    p_ms = cuda_event_time(lambda: lag_history_chunked(lag, F), iters=3)
+    b = bound(0, LAG_ROWS * (8 + 24) * 4)
+    print(f"lag_history at {LAG_ROWS} rows, float32: {launches} launch in the T6 graph fit; off "
+          f"the float64 plain version {gaps['kernel']:.3e} of max|hist| (the float32 plain "
+          f"version on the host {gaps['plain_float32_host']:.3e}, on the card "
+          f"{gaps['plain_on_card']:.3e}; tol {LAG_TOL:g}); {k_ms:.4f} ms a launch (plain "
+          f"{p_ms:.2f} ms, bound {b[0]:.4f} ms by {b[1]}: {100 * b[0] / k_ms:.2f}%) [{card}]")
+    if gaps["kernel"] > LAG_TOL:
+        fail(f"the lag-history kernel is {gaps['kernel']:.3e} off the float64 plain version")
+    return dict(name="lag_history", route="cuda",
+                source="bluerov2_dynamics_tpu_torch/csrc/lag_history.cu",
+                replaces="none: the JAX package's lag_history is a lax.scan "
+                         "(bluerov2_dynamics_tpu/models/sysid.py:219) with no pallas_call",
+                launches=launches, max_rel_err=gaps["kernel"],
+                err_of="max|kernel - float64 plain version| over max|hist|", gaps=gaps,
+                tol=LAG_TOL, ms=k_ms, kernel_ms=k_ms, ms_of="20 launches between CUDA events",
+                plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+                shape=f"F_cmd ({LAG_ROWS}, 8) -> hist ({LAG_ROWS}, 8, 3), float32")
+
+
 def fit_checks(dev, card, t6, t5, t3, t4):
     """The fits of the app runs, checked further on the card, at T6's
     shape over FIT_CHECK_STEPS steps: the graph fit (the window-loss
@@ -712,11 +772,14 @@ def fit_checks(dev, card, t6, t5, t3, t4):
     graph, graph_s = timed(lambda: sysid.fit_thruster(
         X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, graph=True, **kw))
     window_launches = _build.launches["sysid_window"]
+    lag_launches = _build.launches["lag_history"]
     print(f"T6 graph fit: {window_launches} sysid_window launches ({sysid.GRAPH_WARMUP} warm-up, "
-          f"{FIT_CHECK_STEPS} replays)")
+          f"{FIT_CHECK_STEPS} replays), {lag_launches} lag_history launch")
     if window_launches != FIT_CHECK_STEPS + sysid.GRAPH_WARMUP:
         fail(f"the T6 graph fit launched the window-loss kernel {window_launches} times, not "
              f"{FIT_CHECK_STEPS} replays and {sysid.GRAPH_WARMUP} warm-up iterations")
+    if lag_launches != 1:
+        fail(f"the T6 graph fit launched the lag-history kernel {lag_launches} times, not once")
     eager, eager_s = timed(lambda: sysid.fit_thruster(
         X_tr, U_tr, DT, steps=FIT_CHECK_STEPS, graph=False, **kw))
     gaps = {"losses": float(((graph.losses - eager.losses).abs() / eager.losses.abs()).max())}
@@ -755,19 +818,30 @@ def fit_checks(dev, card, t6, t5, t3, t4):
             grad = torch.autograd.grad(loss, [th[k] for k in sorted(th)])
         return loss.detach(), torch.cat([g.reshape(-1) for g in grad])
 
-    kernel_gaps = {}
+    # at the fitted point the gradient vanishes to float32's rounding (its
+    # largest entry ~3e-7, both float32 gradients 0.2-2.7% of it off
+    # float64), so there each gap is over the start's largest entry, the
+    # fit's gradient scale; the float64 gradient comes further on
+    kernel_gaps, kernel_grads = {}, {}
     for label, point in (("start", start), ("fitted", fitted)):
         got_l, got_g = card_value_and_grad(kernel_fn, point)
         want_l, want_g = card_value_and_grad(wl.loss_fn, point)
-        kernel_gaps[label] = dict(
-            loss_rel=float((got_l - want_l).abs() / want_l.abs()),
-            grad_over_largest=float((got_g - want_g).abs().max() / want_g.abs().max()))
+        kernel_grads[label] = got_g.double().cpu()
+        if label == "start":
+            start_largest = float(want_g.abs().max())
+        d = float((got_g - want_g).abs().max())
+        kernel_gaps[label] = dict(loss_rel=float((got_l - want_l).abs() / want_l.abs()),
+                                  grad_over_largest=d / float(want_g.abs().max()),
+                                  grad_over_start_largest=d / start_largest)
         print(f"sysid_window at T6's {label} point against autograd: loss rel "
               f"{kernel_gaps[label]['loss_rel']:.3e} (rtol {WINDOW_KERNEL_TOL['loss']:g}), "
               f"gradient max|d| over its largest entry "
-              f"{kernel_gaps[label]['grad_over_largest']:.3e} (tol {WINDOW_KERNEL_TOL['grad']:g})")
+              f"{kernel_gaps[label]['grad_over_largest']:.3e}, over the start's "
+              f"{kernel_gaps[label]['grad_over_start_largest']:.3e} (tol "
+              f"{WINDOW_KERNEL_TOL['grad']:g})")
     if any(g["loss_rel"] > WINDOW_KERNEL_TOL["loss"]
-           or g["grad_over_largest"] > WINDOW_KERNEL_TOL["grad"] for g in kernel_gaps.values()):
+           or g["grad_over_start_largest"] > WINDOW_KERNEL_TOL["grad"]
+           for g in kernel_gaps.values()):
         fail(f"the window-loss kernel is off autograd's loss or gradient: {kernel_gaps}")
     # its time, its plain version's (autograd's loss and gradient) and its
     # bound: the forward's steps and squared errors, the reverse pass at
@@ -793,9 +867,9 @@ def fit_checks(dev, card, t6, t5, t3, t4):
           f"{b[0]:.4f} ms by {b[1]}: {100 * b[0] / k_ms:.1f}%) [{card}]")
     window_entry = dict(
         launches=window_launches,
-        max_rel_err=max(g["grad_over_largest"] for g in kernel_gaps.values()),
-        err_of="the gradient's max|kernel - autograd| over its largest entry, at T6's start and "
-               "fitted points", gaps=kernel_gaps, tol=WINDOW_KERNEL_TOL,
+        max_rel_err=max(g["grad_over_start_largest"] for g in kernel_gaps.values()),
+        err_of="the gradient's max|kernel - autograd| over the start point's largest entry, at "
+               "T6's start and fitted points", gaps=kernel_gaps, tol=WINDOW_KERNEL_TOL,
         ms=k_ms, kernel_ms=k_ms, ms_of=f"a CUDA graph of {WINDOW_TIMED} launches between CUDA "
                                        "events", event_ms=e_ms, plain_ms=p_ms,
         bound_ms=b[0], bound_by=b[1], library_ms=None,
@@ -876,6 +950,20 @@ def fit_checks(dev, card, t6, t5, t3, t4):
             grad_rel=float(torch.linalg.norm(g32 - g64) / torch.linalg.norm(g64)),
             host_f32_grad_rel=float(torch.linalg.norm(g32h - g64) / torch.linalg.norm(g64)),
             grad_norm=float(torch.linalg.norm(g64)), loss=l64)
+        if label == "start":
+            start64_largest = float(g64.abs().max())
+        # the window-loss kernel's gradient and autograd's (both float32 on
+        # the card) against float64, max|d| over the start's largest entry
+        for name, g in (("kernel", kernel_grads[label]), ("autograd", g32)):
+            kernel_gaps[label][f"{name}_f64_over_start_largest"] = (
+                float((g - g64).abs().max()) / start64_largest)
+        print(f"sysid_window at T6's {label} point against host float64: gradient max|d| over "
+              f"the start's largest entry {kernel_gaps[label]['kernel_f64_over_start_largest']:.3e}"
+              f" (autograd's {kernel_gaps[label]['autograd_f64_over_start_largest']:.3e}; tol "
+              f"{WINDOW_KERNEL_TOL['grad']:g})")
+    if any(g["kernel_f64_over_start_largest"] > WINDOW_KERNEL_TOL["grad"]
+           for g in kernel_gaps.values()):
+        fail(f"the window-loss kernel's gradient is off float64: {kernel_gaps}")
     scale = grads["start"]["grad_norm"]
     for label, g in grads.items():
         g["grad_err_over_start_norm"] = g["grad_rel"] * g["grad_norm"] / scale
@@ -940,7 +1028,8 @@ def fit_checks(dev, card, t6, t5, t3, t4):
     print("K2 (Euler, RK4), K4 and K5 under the fitted coefficients, gains and current agree with "
           "their plain versions; the fused sums give the same bits on ten calls")
     out["kernels_under_fitted_values"] = checked
-    return out, dict(X_tr=X_tr, U_tr=U_tr, kw=kw, eager=eager, sysid_window=window_entry)
+    return out, dict(X_tr=X_tr, U_tr=U_tr, kw=kw, eager=eager, sysid_window=window_entry,
+                     lag_history_launches=lag_launches)
 
 
 def demo_runs(dev, card) -> dict:
@@ -3166,6 +3255,7 @@ def main() -> None:
                         replaces="none: the JAX fit takes jax.value_and_grad of the window loss "
                                  "through a lax.scan (bluerov2_dynamics_tpu/models/sysid.py:135-173)",
                         **fit_ctx["sysid_window"]))
+    kernels.append(lag_history_entry(dev, card, fit_ctx["lag_history_launches"]))
     print(f"measured prices: " + json.dumps({"sinf_flops": sin_price, "rsqrtf_flops": rsqrt_price,
                                               "fma_tree_share_of_peak": tree / FP32_PEAK}))
     print("koopman apps: " + json.dumps(apps, default=float))

@@ -214,7 +214,8 @@ def test_a_kernel_fit_counts_its_replays_and_warm_up(cuda):
     sysid.fit_thruster(X, U, DT, horizon=10, steps=steps, lr=0.02)
     torch.cuda.synchronize()
     rose = {k: n - before[k] for k, n in _build.launches.items() if n != before[k]}
-    assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP}     # the capture runs none
+    # the capture runs none; the lag warm start is one launch of its kernel
+    assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP, "lag_history": 1}
 
 
 @pytest.mark.cuda
@@ -223,7 +224,7 @@ def test_graph_fits_capture_on_the_scan_modules_side_stream(cuda):
     ``ops/scan.py::capture``: each capture adds its seconds to
     ``scan.STATS["capture_s"]``, one side stream serves the device, and a
     kernel fit counts ``sysid_window`` once for each warm-up iteration and
-    each replay (the capture none)."""
+    each replay (the capture none), and ``lag_history`` once."""
     from bluerov2_dynamics_tpu_torch.models import estimation as est
     from bluerov2_dynamics_tpu_torch.models import fossen
     from bluerov2_dynamics_tpu_torch.models.params import fossen_params
@@ -237,7 +238,7 @@ def test_graph_fits_capture_on_the_scan_modules_side_stream(cuda):
         torch.cuda.synchronize()
         assert scan.STATS["capture_s"] > before
         rose = {k: n - counted[k] for k, n in _build.launches.items() if n != counted[k]}
-        assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP}
+        assert rose == {"sysid_window": steps + sysid.GRAPH_WARMUP, "lag_history": 1}
         side = scan._SIDE_STREAMS[X.device]
     step = fossen.make_wrench_step(fossen_params(device=cuda), DT, "euler", "euler12")
     m0, Us, Ys = est.segment_trajectory(TAU[:299], X[:300], 50)
