@@ -45,6 +45,7 @@ from bluerov2_dynamics_tpu_torch.eval.metrics import rmse
 from bluerov2_dynamics_tpu_torch.ops.kmeans import kmeans
 from bluerov2_dynamics_tpu_torch.ops.lifting import rbf_lift
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 
 class KoopmanModel(NamedTuple):
@@ -116,8 +117,10 @@ def _gram(G, Y):
 
 def _ridge_solve(G, Y, ridge):
     """Solve ``min ||G M - Y||^2 + ridge ||M||^2`` for ``M`` (in ``G``'s
-    dtype; the normal equations are formed and solved in float64)."""
-    return _solve_normal_eqns(*_gram(G, Y), ridge).to(G.dtype)
+    dtype; the normal equations are formed and solved in float64), in the
+    span ``brov2.koopman.normal_eqns``."""
+    with span("brov2.koopman.normal_eqns"):
+        return _solve_normal_eqns(*_gram(G, Y), ridge).to(G.dtype)
 
 
 def _fit_from_blocks(Z, Zp, Uc, centers, gamma, ridge):
@@ -143,16 +146,17 @@ def fit(
     """Fit (A, B) from one trajectory: states ``X (N, n)``, inputs ``U (N, r)``.
 
     k-means centers on the state cloud (seeded from ``generator``, or
-    Lloyd rounds from ``init``), the lifted consecutive snapshot pairs, one
-    ridge normal-equation solve.  ``position_invariant`` masks x, y, z out
-    of the RBF distances.
+    Lloyd rounds from ``init``), the lifted consecutive snapshot pairs (the
+    span ``brov2.koopman.lift``), one ridge normal-equation solve.
+    ``position_invariant`` masks x, y, z out of the RBF distances.
     """
     weights = _position_mask(X) if position_invariant else None
     X_cl = X * weights if weights is not None else X
     centers, _ = kmeans(X_cl, n_rbfs, kmeans_iters, generator, init)
     gamma = torch.as_tensor(gamma, dtype=X.dtype, device=X.device)
-    Z = rbf_lift(X[:-1], centers, gamma, weights)
-    Zp = rbf_lift(X[1:], centers, gamma, weights)
+    with span("brov2.koopman.lift"):
+        Z = rbf_lift(X[:-1], centers, gamma, weights)
+        Zp = rbf_lift(X[1:], centers, gamma, weights)
     return _fit_from_blocks(Z, Zp, U[:-1], centers, gamma, ridge)._replace(rbf_weights=weights)
 
 
@@ -449,8 +453,9 @@ def multistep_rmse(model: KoopmanModel, X, U, H: int = 10,
 
     All starts are lifted once and propagated together: ``"scan"`` takes H
     steps of GEMMs (step t reads ``U[t : t + n_start]``), ``"conv"`` the
-    same endpoint as one control-convolution GEMM (:func:`_endpoint_conv`).
-    ``H = 0`` scores the reconstruction; ``N <= H`` gives NaN.
+    same endpoint as one control-convolution GEMM (:func:`_endpoint_conv`),
+    either in the span ``brov2.koopman.propagate``.  ``H = 0`` scores the
+    reconstruction; ``N <= H`` gives NaN.
     ``post_decode`` transforms the decoded predictions before scoring.
     """
     if method not in ("scan", "conv"):
@@ -460,13 +465,13 @@ def multistep_rmse(model: KoopmanModel, X, U, H: int = 10,
         return _nan(X)
     Z = lift(model, X[:n_start])
     A_T, B_T = model.A.T, model.B.T
-    if H == 0:
-        pass
-    elif method == "conv":
-        Z = _endpoint_conv(Z, U, A_T, B_T, H, n_start)
-    else:
-        for t in range(H):
-            Z = Z @ A_T + U[t:t + n_start] @ B_T
+    if H > 0:
+        with span("brov2.koopman.propagate"):
+            if method == "conv":
+                Z = _endpoint_conv(Z, U, A_T, B_T, H, n_start)
+            else:
+                for t in range(H):
+                    Z = Z @ A_T + U[t:t + n_start] @ B_T
     pred = decode(model, Z)
     if post_decode is not None:
         pred = post_decode(pred)

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from bluerov2_dynamics_tpu_torch.ops.precision import full_f32
+from bluerov2_dynamics_tpu_torch.utils.profiling import span
 
 
 @full_f32()
@@ -57,16 +58,22 @@ def kmeans(X, k: int, iters: int = 25, generator: Optional[torch.Generator] = No
 
     Seeds by :func:`_kmeanspp_init` from ``generator`` unless ``init``
     (``(k, n)`` initial centers) is given, then runs ``iters`` Lloyd
-    rounds.  Deterministic for a generator's seed.
+    rounds.  Deterministic for a generator's seed.  The seeding and the
+    rounds (with the final assignment) are the spans ``brov2.koopman.seed``
+    and ``brov2.koopman.lloyd``.
     """
-    centers = (_kmeanspp_init(X, k, generator) if init is None
-               else torch.as_tensor(init, dtype=X.dtype, device=X.device).clone())
-    for _ in range(iters):
+    if init is None:
+        with span("brov2.koopman.seed"):
+            centers = _kmeanspp_init(X, k, generator)
+    else:
+        centers = torch.as_tensor(init, dtype=X.dtype, device=X.device).clone()
+    with span("brov2.koopman.lloyd"):
+        for _ in range(iters):
+            assign = torch.argmin(_pairwise_sqdist(X, centers), dim=1)
+            onehot = torch.nn.functional.one_hot(assign, k).to(X.dtype)   # (N, k)
+            counts = torch.sum(onehot, dim=0)                             # (k,)
+            sums = onehot.T @ X                                           # (k, n)
+            centers = torch.where(counts[:, None] > 0,
+                                  sums / torch.clamp(counts, min=1.0)[:, None], centers)
         assign = torch.argmin(_pairwise_sqdist(X, centers), dim=1)
-        onehot = torch.nn.functional.one_hot(assign, k).to(X.dtype)   # (N, k)
-        counts = torch.sum(onehot, dim=0)                             # (k,)
-        sums = onehot.T @ X                                           # (k, n)
-        centers = torch.where(counts[:, None] > 0,
-                              sums / torch.clamp(counts, min=1.0)[:, None], centers)
-    assign = torch.argmin(_pairwise_sqdist(X, centers), dim=1)
     return centers, assign
